@@ -14,16 +14,26 @@ fails the run:
               at the main path's shapes (ResNet-18 width 1.0, B = 256,
               F(4,3) Legendre, 9-bit Hadamard), plus one F(6,3) and one
               canonical case: integer outputs bit for bit, fp32 outputs
-              within 1e-6 of their max;
+              within 1e-6 of their max; K5 at the llama3.2-1b projection
+              shapes (prefill M = 2048 and decode M = 8), one ragged
+              shape and one bf16 output: bit for bit;
 4. main     — ``repro_torch.launch.infer_resnet`` at width 1.0, batch
               256, 2 calibration steps: pack → calibrate → checkpoint →
               restore → serve fused and staged, its fused-vs-staged gate
-              against the fp32 ``direct`` network; launch counts read
-              around it (every kernel > 0, K4 14 per fused forward);
+              against the fp32 ``winograd_fp`` network; launch counts read
+              around it (K1–K4 > 0, K4 14 per fused forward); then
+              ``ops.q8_linear`` over the seven projections of one
+              llama3.2-1b layer at M = 2048, its K5 launches read around
+              it and its error against fp32 ``x @ w`` gated;
 5. times    — CUDA-event time of each kernel at each main-path shape
               beside its bound, its plain version and a library yardstick
-              (cuDNN ``F.conv2d``, ``torch._int_mm`` over the positions;
-              the port calls neither), and fused images/s at B = 256.
+              (cuDNN ``F.conv2d``, ``torch._int_mm``; the port calls
+              neither), and fused images/s at B = 256;
+6. train    — ``repro_torch.launch.train_resnet_qat`` at width 1.0, batch
+              256, F(4,3) Legendre, flex, 9-bit Hadamard, 10 steps: every
+              loss finite, every parameter, the flex matrices and the
+              BatchNorm running statistics changed; ms per step, images/s
+              and peak memory.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Details go
@@ -32,6 +42,7 @@ to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -63,7 +74,19 @@ TPU_KERNELS = {
                          "src/repro/kernels/wino_transform.py:201"),
     "fused_gemm_output": ("src/repro_torch/csrc/fused_serve.cu",
                           "src/repro/kernels/fused_serve.py:152"),
+    "q8_matmul": ("src/repro_torch/csrc/q8_matmul.cu",
+                  "src/repro/kernels/q8_matmul.py:76"),
 }
+SERVING = ("input_transform", "wino_gemm", "output_transform",
+           "fused_gemm_output")
+# The seven projections of one llama3.2-1b decoder layer (d_model 2048,
+# 32 query / 8 key-value heads of 64, d_ff 8192): name, K, N.
+LLAMA_PROJ = [("q", 2048, 2048), ("k", 2048, 512), ("v", 2048, 512),
+              ("o", 2048, 2048), ("gate", 2048, 8192), ("up", 2048, 8192),
+              ("down", 8192, 2048)]
+Q8_SHAPES = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)]
+PREFILL_M, DECODE_M = 4 * 512, 8
+TRAIN_STEPS = 10
 
 
 def fail(msg: str) -> None:
@@ -91,6 +114,22 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return a.elapsed_time(b) / iters
 
 
+def device_ms_by_kernel(prof, per: int = 1) -> dict:
+    """Device time by kernel name (ms, divided by ``per``) from a
+    ``torch.profiler`` run: device events only, since a CPU op repeats
+    its kernels' time."""
+    from torch.autograd import DeviceType
+    by_kernel: dict = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0)
+        by_kernel[e.key] = by_kernel.get(e.key, 0.0) + us / 1e3 / per
+    return by_kernel
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -104,9 +143,10 @@ def main() -> int:
     from repro_torch.core.quantization import QuantConfig
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import fused_serve as fs
+    from repro_torch.kernels import q8_matmul as q8
     from repro_torch.kernels import wino_gemm as wg
     from repro_torch.kernels import wino_transform as wt
-    from repro_torch.launch import infer_resnet
+    from repro_torch.launch import infer_resnet, train_resnet_qat
 
     report: dict = {}
     dev = torch.device("cuda")
@@ -222,6 +262,33 @@ def main() -> int:
     report["checks"]["canonical"] = check(
         WinogradSpec(m=4, r=3, base="canonical"), 16 * BATCH, 128, 128, 8,
         "F(4,3) canonical 8-bit T=4096 C=128")
+
+    def q8_inputs(M, K, N):
+        xq = torch.randint(-127, 128, (M, K), generator=gen, device=dev,
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, (K, N), generator=gen, device=dev,
+                           dtype=torch.int8)
+        sx = torch.rand((1,), generator=gen, device=dev) * 0.02 + 1e-3
+        sw = torch.rand((N,), generator=gen, device=dev) * 0.02 + 1e-4
+        return xq, wq, sx, sw
+
+    q8_cases = [(M, K, N, torch.float32) for K, N in Q8_SHAPES
+                for M in (PREFILL_M, DECODE_M)]
+    q8_cases += [(130, 100, 70, torch.float32),
+                 (PREFILL_M, 2048, 2048, torch.bfloat16)]
+    report["checks"]["q8_matmul"] = {}
+    for M, K, N, odt in q8_cases:
+        xq, wq, sx, sw = q8_inputs(M, K, N)
+        a = q8.q8_matmul(xq, wq, sx, sw, out_dtype=odt)
+        b = q8.q8_matmul_plain(xq, wq, sx, sw, out_dtype=odt)
+        torch.cuda.synchronize()
+        d = float((a.float() - b.float()).abs().max())
+        label = f"K5 M={M} K={K} N={N} {str(odt).split('.')[-1]}"
+        report["checks"]["q8_matmul"][label] = d
+        errs["q8_matmul"] = max(errs["q8_matmul"], d)
+        if a.dtype != odt or not torch.equal(a, b):
+            fail(f"{label}: differs from its plain version by {d}")
+        log(f"{label}: bit for bit with its plain version")
     del gen
 
     # 4. main path ----------------------------------------------------------
@@ -234,19 +301,49 @@ def main() -> int:
     launches = dict(_build.LAUNCHES)
     report["main_path"] = out
     report["launches"] = launches
-    log(f"main path launches: {launches}")
-    for k, v in launches.items():
-        if v <= 0:
-            fail(f"kernel {k} was not launched on the main path")
+    log(f"serving path launches: {launches}")
+    for k in SERVING:
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched on the serving path")
     # 14 Winograd convs per forward: calibration and staged/dynamic serving
     # run K1 → K2 → K3, fused serving K1 → K4
     staged = out["calib_forwards"] + out["staged_forwards"] + \
         out["dynamic_forwards"]
     want = {"input_transform": 14 * (staged + out["fused_forwards"]),
             "wino_gemm": 14 * staged, "output_transform": 14 * staged,
-            "fused_gemm_output": 14 * out["fused_forwards"]}
+            "fused_gemm_output": 14 * out["fused_forwards"], "q8_matmul": 0}
     if launches != want:
-        fail(f"main-path launches {launches}, expected {want}")
+        fail(f"serving-path launches {launches}, expected {want}")
+
+    # the q8_linear path: one llama3.2-1b layer's projections, prefill
+    gen = torch.Generator(device=dev).manual_seed(2)
+    xs = {K: torch.randn((4, PREFILL_M // 4, K), generator=gen, device=dev)
+          for K in {k for _, k, _ in LLAMA_PROJ}}
+    ws = {nm: torch.randn((K, N), generator=gen, device=dev) / K ** 0.5
+          for nm, K, N in LLAMA_PROJ}
+    _build.reset_launches()
+    ys = {nm: ops.q8_linear(xs[K], ws[nm]) for nm, K, _ in LLAMA_PROJ}
+    torch.cuda.synchronize()
+    q8_launches = dict(_build.LAUNCHES)
+    log(f"q8_linear path launches: {q8_launches}")
+    if q8_launches["q8_matmul"] != len(LLAMA_PROJ) or \
+            any(q8_launches[k] for k in SERVING):
+        fail(f"q8_linear path launches {q8_launches}, expected "
+             f"q8_matmul {len(LLAMA_PROJ)} and nothing else")
+    launches["q8_matmul"] = q8_launches["q8_matmul"]
+    report["q8_linear_rel"] = {}
+    for nm, K, N in LLAMA_PROJ:
+        ref = xs[K] @ ws[nm]
+        y = ys[nm]
+        r = float((y - ref).norm() / ref.norm())
+        report["q8_linear_rel"][nm] = r
+        if tuple(y.shape) != (4, PREFILL_M // 4, N) or \
+                not bool(torch.isfinite(y).all()) or not r < 0.05:
+            fail(f"q8_linear {nm}: shape {tuple(y.shape)}, rel error {r} "
+                 f"against fp32 x @ w")
+    log("q8_linear rel error vs fp32 x @ w: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in report["q8_linear_rel"].items()))
+    del xs, ws, ys, gen
 
     # 5. times --------------------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -339,6 +436,52 @@ def main() -> int:
         del tiles, xq, acc, hq
     report["layer_times"] = layer_times
 
+    # K5 at the llama3.2-1b projection shapes, prefill and decode
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q8_rows = {}
+    for M in (PREFILL_M, DECODE_M):
+        for K, N in Q8_SHAPES:
+            xq, wq, sx, sw = q8_inputs(M, K, N)
+            nbytes = M * K + K * N + 4 + 4 * N + 4 * M * N
+            b_ms = nbytes / HBM_BYTES_S * 1e3
+            o_ms = 2 * M * K * N / INT8_OPS_S * 1e3
+            t_k = time_ms(lambda: q8.q8_matmul(xq, wq, sx, sw))
+            t_p = time_ms(lambda: q8.q8_matmul_plain(xq, wq, sx, sw),
+                          iters=3, warmup=1)
+            # torch._int_mm takes M > 16: a decode M is padded to 32 rows
+            xa = torch.zeros((max(M, 32), K), dtype=torch.int8, device=dev)
+            xa[:M] = xq
+            t_l = time_ms(lambda: torch._int_mm(xa, wq))
+            t_le = time_ms(lambda: torch._int_mm(xa, wq).float() * sx * sw)
+            q8_rows[f"M={M} K={K} N={N}"] = {
+                "ms": t_k, "plain_ms": t_p, "bytes_ms": b_ms, "ops_ms": o_ms,
+                "bound_ms": max(b_ms, o_ms), "int_mm_ms": t_l,
+                "int_mm_epilogue_ms": t_le}
+            log(f"time K5 M={M:4d} K={K:4d} N={N:4d}: kernel {t_k:.4f} ms, "
+                f"bound {max(b_ms, o_ms):.4f} ms "
+                f"({'bytes' if b_ms >= o_ms else 'operations'}), plain "
+                f"{t_p:.3f} ms, _int_mm {t_l:.4f} ms, _int_mm + epilogue "
+                f"{t_le:.4f} ms")
+            del xq, wq, xa
+    report["q8_times"] = q8_rows
+    report["q8_layer_set"] = {}
+    for M in (PREFILL_M, DECODE_M):
+        tot = {f: sum(q8_rows[f"M={M} K={K} N={N}"][f]
+                      for _, K, N in LLAMA_PROJ)
+               for f in ("ms", "plain_ms", "bytes_ms", "ops_ms", "bound_ms",
+                         "int_mm_ms", "int_mm_epilogue_ms")}
+        report["q8_layer_set"][M] = tot
+        log(f"K5 over one llama3.2-1b layer's 7 projections at M={M}: "
+            f"kernel {tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms, "
+            f"plain {tot['plain_ms']:.3f} ms, _int_mm {tot['int_mm_ms']:.4f}"
+            f" ms, _int_mm + epilogue {tot['int_mm_epilogue_ms']:.4f} ms")
+    pre = report["q8_layer_set"][PREFILL_M]
+    per["q8_matmul"] = {"ms": pre["ms"], "plain_ms": pre["plain_ms"],
+                        "bound_ms": pre["bound_ms"],
+                        "bytes_ms": pre["bytes_ms"], "ops_ms": pre["ops_ms"],
+                        "library_ms": pre["int_mm_ms"]}
+    del gen
+
     # fused serving throughput at B = 256, width 1.0
     from repro_torch.data.pipeline import cifar_batch_at
     from repro_torch.models import resnet as RN
@@ -366,15 +509,7 @@ def main() -> int:
     report["images_per_s"] = BATCH / (fwd_ms / 1e3)
     log(f"fused serving, width 1.0, B={BATCH}: {fwd_ms:.3f} ms per forward, "
         f"{report['images_per_s']:.0f} images/s")
-    from torch.autograd import DeviceType
-    by_kernel = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:   # device events only: a CPU
-            continue                            # op repeats its kernels' time
-        us = getattr(e, "device_time_total", None)
-        if us is None:
-            us = getattr(e, "cuda_time_total", 0)
-        by_kernel[e.key] = by_kernel.get(e.key, 0.0) + us / 1e3
+    by_kernel = device_ms_by_kernel(prof)
     busy_ms = sum(by_kernel.values())
     report["trace"] = {"device_ms_by_kernel": by_kernel,
                        "device_busy_ms": busy_ms}
@@ -385,6 +520,48 @@ def main() -> int:
             f"{fwd_ms:.3f} ms event-timed forward "
             f"({100 * busy_ms / fwd_ms:.1f}% busy); top kernels:")
         for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]:
+            log(f"  {v:8.3f} ms  {k[:100]}")
+
+    # 6. train ---------------------------------------------------------------
+    torch.cuda.empty_cache()
+    tr = train_resnet_qat.main(["--width", "1.0", "--batch", str(BATCH),
+                                "--steps", str(TRAIN_STEPS),
+                                "--device", "cuda"])
+    report["train"] = tr
+    bad = [i for i, v in enumerate(tr["losses"]) if not math.isfinite(v)]
+    if bad:
+        fail(f"training losses not finite at steps {bad}: {tr['losses']}")
+    still = [k for k, v in tr["param_change"].items() if not v > 0]
+    flex = [k for k in tr["param_change"] if k.startswith("wino_flex.")]
+    if still or len(flex) != 3:
+        fail(f"parameters that did not change: {still}; flex {flex}")
+    still = [k for k, v in tr["bn_change"].items() if not v > 0]
+    if still:
+        fail(f"BatchNorm running statistics that did not move: {still}")
+    log(f"train, width 1.0, B={BATCH}, {TRAIN_STEPS} steps: losses "
+        f"{[round(v, 4) for v in tr['losses']]}; {tr['step_ms']:.2f} ms per "
+        f"step, {tr['images_per_s']:.0f} images/s trained, peak memory "
+        f"{tr['peak_mem_bytes'] / 2**30:.2f} GiB; every parameter, the flex "
+        f"matrices and the BN statistics changed")
+    # where a training step's device time goes: two traced steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        train_resnet_qat.main(["--width", "1.0", "--batch", str(BATCH),
+                               "--steps", "2", "--device", "cuda"])
+        torch.cuda.synchronize()
+    by_kernel = device_ms_by_kernel(prof, per=2)
+    busy_ms = sum(by_kernel.values())
+    report["train_trace"] = {"device_ms_by_kernel_per_step": by_kernel,
+                             "device_busy_ms_per_step": busy_ms}
+    if not by_kernel:
+        log("train trace: the profiler recorded no device time "
+            "(not measured)")
+    else:
+        log(f"train trace: device busy {busy_ms:.2f} ms per step against "
+            f"{tr['step_ms']:.2f} ms per step "
+            f"({100 * busy_ms / tr['step_ms']:.1f}% busy); top kernels per "
+            f"step:")
+        for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]:
             log(f"  {v:8.3f} ms  {k[:100]}")
 
     kernels = []

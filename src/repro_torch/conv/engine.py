@@ -2,16 +2,21 @@
 the prepared/calibrated int8 serving state (the port's counterpart of
 ``repro.conv.engine``).
 
-Backends served by the port:
+Backends:
 
 * ``direct`` — ``F.conv2d`` with TF32 off (full fp32, the counterpart of
-  ``lax.conv``): stride-2 convs, 1×1 projections, and the fp reference.
+  ``lax.conv``): stride-2 convs, 1×1 projections, the baseline.
+* ``winograd_fp`` — ``core.winograd.winograd_conv2d`` with quantization
+  off: the exact F(m, r) reference.
+* ``winograd_fakequant`` — the same pipeline with the paper's Fig. 2
+  fake-quant casts (8-bit, 8/9-bit Hadamard): quantization-aware
+  training, differentiable through the straight-through estimator.
 * ``winograd_int8`` — the CUDA kernels through ``kernels.ops``: K1 input
   transform, then the single-pass K4 (``fused=True``, the default, for
   prepared + calibrated layers) or the staged K2 → K3 pipeline.
 
-``winograd_fp`` and ``winograd_fakequant`` are routed by the policy but
-not ported yet; routing a layer to them raises.
+The two plain-PyTorch Winograd backends take ``flex=`` transforms; the
+int8 backend packs the analytic matrices and refuses them.
 
 Lifecycle (int8 serving):
 
@@ -38,45 +43,19 @@ import dataclasses
 from typing import Iterable, Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.conv.packing import (PackedWinogradWeights, merge_abs_max,
                                       pack_weights, scales_from_abs_max)
 from repro_torch.conv.policy import ConvPolicy
-from repro_torch.core.winograd import WinogradSpec
+from repro_torch.core.quantization import QuantConfig
+from repro_torch.core.winograd import (WinogradSpec, direct_conv2d,
+                                       make_matrices, winograd_conv2d)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import (_extract, _geometry, _tiles_abs_max,
                                      execute_int8, prepare_weights_int8,
                                      winograd_conv2d_int8)
 
 __all__ = ["ConvEngine"]
-
-
-def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
-    """XLA's SAME padding along one dim: (lo, hi), hi taking the odd one."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + k - size, 0)
-    return total // 2, total - total // 2
-
-
-def _direct(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
-            padding: str = "same") -> torch.Tensor:
-    """Direct convolution, NHWC × HWIO → NHWC, in full fp32: cuDNN's TF32
-    is off for the call, so this is the counterpart of ``lax.conv`` with
-    "SAME"/"VALID" padding."""
-    xn = x.permute(0, 3, 1, 2)
-    wn = w.permute(3, 2, 0, 1)
-    if padding == "same":
-        (hl, hh), (wl, wh) = (_same_pads(x.shape[1], w.shape[0], stride),
-                              _same_pads(x.shape[2], w.shape[1], stride))
-        xn = F.pad(xn, (wl, wh, hl, hh))
-    elif padding != "valid":
-        raise ValueError(padding)
-    cudnn = torch.backends.cudnn
-    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                     deterministic=cudnn.deterministic, allow_tf32=False):
-        y = F.conv2d(xn, wn, stride=stride)
-    return y.permute(0, 2, 3, 1)
 
 
 def _same_packed_weights(a: PackedWinogradWeights,
@@ -120,6 +99,9 @@ class ConvEngine:
             hadamard_bits = (spec.quant.hadamard_bits
                              if spec is not None else None)
         self.spec = spec
+        self.fp_spec = (dataclasses.replace(spec, quant=QuantConfig.off())
+                        if spec is not None else None)
+        self.mats = make_matrices(spec) if spec is not None else None
         self.policy = policy or ConvPolicy()
         self.padding = padding
         self.hadamard_bits = hadamard_bits
@@ -148,8 +130,13 @@ class ConvEngine:
 
     def conv2d(self, x: torch.Tensor, w: Optional[torch.Tensor], *,
                layer: str = "conv", stride: int = 1,
+               flex: Optional[dict] = None,
                padding: Optional[str] = None) -> torch.Tensor:
         """One convolution. x: (N,H,W,Cin) NHWC; w: (k,k,Cin,Cout) HWIO.
+
+        ``flex``: trainable transform matrices (``core.winograd.flex_init``
+        keys) for the ``winograd_fp``/``winograd_fakequant`` backends;
+        ignored by ``direct``, refused by ``winograd_int8``.
 
         ``w`` may be None for a prepared + calibrated ``winograd_int8``
         layer. For an int8 layer with packed state the packed weights are
@@ -173,11 +160,18 @@ class ConvEngine:
                 f"{backend!r} — packed state only serves winograd_int8")
 
         if backend == "direct":
-            return _direct(x, w, stride, pad)
-        if backend != "winograd_int8":
-            raise NotImplementedError(
-                f"layer {layer!r}: the {backend!r} backend is not ported "
-                f"yet; the port serves 'direct' and 'winograd_int8'")
+            return direct_conv2d(x, w, pad, stride)
+        if backend == "winograd_fp":
+            return winograd_conv2d(x, w, self.fp_spec, mats=self.mats,
+                                   flex=flex, padding=pad)
+        if backend == "winograd_fakequant":
+            return winograd_conv2d(x, w, spec, mats=self.mats, flex=flex,
+                                   padding=pad)
+        if flex is not None:
+            raise ValueError(
+                "the winograd_int8 backend packs analytic transform "
+                "matrices; flex-trained transforms are not supported — "
+                "serve flex models via winograd_fakequant/winograd_fp")
         hbits = self.hadamard_bits
         if self._calibrating:
             return self._calibrate_conv(x, w, pk, layer, pad, spec, hbits)

@@ -17,8 +17,7 @@ import dataclasses
 
 __all__ = ["BACKENDS", "ConvPolicy"]
 
-#: The engine's backend matrix (see repro_torch.conv.engine for which
-#: ones the port serves).
+#: The engine's backend matrix (see repro_torch.conv.engine).
 BACKENDS = ("direct", "winograd_fp", "winograd_fakequant", "winograd_int8")
 
 

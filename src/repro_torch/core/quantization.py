@@ -1,17 +1,19 @@
-"""Symmetric quantization settings of the Winograd pipeline.
+"""Symmetric quantization of the Winograd pipeline.
 
-The port's counterpart of ``repro.core.quantization``: the grid helpers
-and the per-stage ``QuantConfig``. The fake-quant (QAT) casts are not
-ported yet; the int8 serving path needs only these.
+The port's counterpart of ``repro.core.quantization``: the grid helpers,
+the per-stage ``QuantConfig``, the fake-quant cast of quantization-aware
+training with its saturating straight-through estimator, and the
+true-integer helpers.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
-__all__ = ["QuantConfig", "qmax", "storage_dtype"]
+__all__ = ["QuantConfig", "qmax", "storage_dtype", "abs_max_scale",
+           "fake_quant", "quantize_int", "dequantize_int"]
 
 
 def qmax(bits: int) -> int:
@@ -66,3 +68,76 @@ class QuantConfig:
         return all(b is None for b in (self.act_bits, self.weight_bits,
                                        self.trans_bits, self.hadamard_bits,
                                        self.matrix_bits))
+
+
+def abs_max_scale(x: torch.Tensor, bits: int,
+                  axis: Optional[Sequence[int]] = None,
+                  eps: float = 1e-12) -> torch.Tensor:
+    """Dynamic symmetric scale amax/qmax, per tensor or per channel.
+
+    ``axis`` lists the axes to reduce over; the remaining axes keep their
+    own scale (kept dims, broadcastable against ``x``)."""
+    if axis is None:
+        amax = x.abs().amax()
+    else:
+        amax = x.abs().amax(dim=tuple(axis), keepdim=True)
+    return torch.clamp_min(amax, eps) / qmax(bits)
+
+
+class _FakeQuant(torch.autograd.Function):
+    """clip(round(x / scale), ±qmax) · scale. Backward is the saturating
+    straight-through estimator: the gradient passes where
+    |x / scale| ≤ qmax and is zero where the clip saturates; the scale
+    gets none."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bits):
+        qm = qmax(bits)
+        xs = x / scale
+        # only the mask is kept for backward (1 byte an element, not 4)
+        ctx.save_for_backward(xs.abs() <= qm)
+        return torch.clamp(torch.round(xs), -qm, qm) * scale
+
+    @staticmethod
+    def backward(ctx, g):
+        inside, = ctx.saved_tensors
+        return g * inside.to(g.dtype), None, None
+
+
+def fake_quant(x: torch.Tensor, bits: Optional[int],
+               axis: Optional[Sequence[int]] = None,
+               scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Symmetric fake-quantize ``x`` to ``bits``; a no-op when bits is
+    None. Without ``scale``, the dynamic abs-max scale, computed with no
+    gradient (JAX's ``stop_gradient``)."""
+    if bits is None:
+        return x
+    if scale is None:
+        scale = abs_max_scale(x.detach(), bits, axis=axis)
+    return _FakeQuant.apply(x, scale, bits)
+
+
+def quantize_int(x: torch.Tensor, bits: int = 8,
+                 axis: Optional[Sequence[int]] = None,
+                 dtype: Optional[torch.dtype] = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantize to a true integer tensor and its fp scale.
+
+    ``dtype=None`` selects the narrowest dtype that holds the grid
+    (``storage_dtype``); an explicitly passed dtype too narrow for
+    ``bits`` raises instead of silently widening."""
+    if dtype is None:
+        dtype = storage_dtype(bits)
+    elif qmax(bits) > torch.iinfo(dtype).max:
+        raise ValueError(
+            f"a {bits}-bit symmetric grid spans ±{qmax(bits)}, which does "
+            f"not fit the requested {dtype} — pass dtype=None to widen "
+            f"(storage_dtype({bits}) = {storage_dtype(bits)})")
+    scale = abs_max_scale(x, bits, axis=axis)
+    q = torch.clamp(torch.round(x / scale), -qmax(bits), qmax(bits))
+    return q.to(dtype), scale
+
+
+def dequantize_int(q: torch.Tensor, scale: torch.Tensor,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return q.to(dtype) * scale

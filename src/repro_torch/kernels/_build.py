@@ -33,6 +33,7 @@ SOURCES = {
     "wino_transform": ("input_transform", "output_transform"),
     "wino_gemm": ("wino_gemm",),
     "fused_serve": ("fused_gemm_output",),
+    "q8_matmul": ("q8_matmul",),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",

@@ -30,18 +30,20 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.quantization import QuantConfig, qmax
+from repro_torch.core.quantization import QuantConfig, qmax, quantize_int
 from repro_torch.core.winograd import (WinogradSpec, _extract_tiles_1d_axis,
                                        _pad_amounts, make_matrices,
                                        transform_weights_2d)
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.fused_serve import fused_gemm_output
+from repro_torch.kernels.q8_matmul import q8_matmul
 from repro_torch.kernels.wino_gemm import wino_gemm
 from repro_torch.kernels.wino_transform import (input_transform,
                                                 output_transform)
 
 __all__ = ["prepare_weights_int8", "input_abs_max", "scales_from_abs_max",
-           "quantize_input", "winograd_conv2d_int8", "execute_int8"]
+           "quantize_input", "winograd_conv2d_int8", "execute_int8",
+           "q8_linear"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -239,3 +241,24 @@ def execute_int8(tiles: torch.Tensor, u_q: torch.Tensor,
     if with_stats:
         return out, amax_h[:, 0, 0]
     return out
+
+
+def _q8_operands(x2: torch.Tensor, w: torch.Tensor):
+    """q8_linear's dynamic quantization: x (M, K) per tensor, w (K, N)
+    per output column, scale = max(amax, 1e-12)/127 → (xq, wq, s_x, s_w)."""
+    xq, s_x = quantize_int(x2, 8)
+    wq, s_w = quantize_int(w, 8, axis=(0,))
+    return xq, wq, s_x, s_w.reshape(-1)
+
+
+def q8_linear(x: torch.Tensor, w: torch.Tensor,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Dynamic w8a8 linear: x quantized per tensor, w per output column,
+    then the int8 GEMM with its dequant epilogue (K5).
+
+    x: (..., K) fp, w: (K, N) fp → (..., N). The quantization is plain
+    torch, as it is plain jnp in the JAX package."""
+    lead = x.shape[:-1]
+    xq, wq, s_x, s_w = _q8_operands(x.reshape(-1, x.shape[-1]), w)
+    y = q8_matmul(xq, wq, s_x, s_w, out_dtype=out_dtype)
+    return y.reshape(*lead, -1)

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["wino_gemm_ref", "input_transform_fp", "input_transform_ref",
-           "output_transform_ref"]
+           "output_transform_ref", "q8_matmul_ref"]
 
 
 def wino_gemm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -64,3 +64,15 @@ def output_transform_ref(h: torch.Tensor, pos_scale: torch.Tensor,
     if changes_base:
         hf = _sandwich(cinvt, hf)
     return _sandwich(apt, hf)                                # (T, C, m, m)
+
+
+def q8_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor, s_x: torch.Tensor,
+                  s_w: torch.Tensor,
+                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(M,K) int8 · (K,N) int8 with the symmetric dequant epilogue
+    ``f32(acc) · s_x · s_w[col]``, cast to ``out_dtype``. The int32
+    accumulator is exact: the product runs in float64 (see
+    ``wino_gemm_ref``), |acc| ≤ K·127² < 2⁵³."""
+    acc = torch.mm(x_q.to(torch.float64), w_q.to(torch.float64))
+    acc = acc.to(torch.int32).to(torch.float32)
+    return (acc * s_x * s_w[None, :]).to(out_dtype)

@@ -18,7 +18,8 @@ The counterpart of ``repro.launch.infer_resnet`` stages 1–4:
    (K1 → K2 with its requant epilogue → K3) and dynamically (no
    calibration: K1 → K2 → K3); report agreement, and gate that fused
    serving adds no error over staged against the fp32 reference, the
-   ``direct`` network (``F.conv2d`` with TF32 off).
+   ``winograd_fp`` network (the exact F(4,3) pipeline in plain PyTorch,
+   as the JAX launcher's gate).
 
 Runs on the card unless ``--device cpu`` is passed, which runs the
 kernels' plain versions. The ``--plan``/``--autotune`` stages and
@@ -124,7 +125,7 @@ def _run(args, device: torch.device, ckpt_dir: str) -> dict:
     staged.import_state(tree)
     dynamic = RN.make_engine(cfg, backend="winograd_int8",  # no prepare
                              device=device)
-    fp = RN.make_engine(cfg, backend="direct", device=device)
+    fp = RN.make_engine(cfg, backend="winograd_fp", device=device)
 
     images = cifar_batch_at(10_000, args.batch, seed=args.seed,
                             device=device)["images"]
@@ -140,7 +141,8 @@ def _run(args, device: torch.device, ckpt_dir: str) -> dict:
     print(f"[serve] calibrated-int8 vs dynamic-int8: rel "
           f"{rel(y_fused, y_dyn):.4f}, argmax agreement "
           f"{_agree(y_fused, y_dyn):.2f}")
-    print(f"[serve] vs fp32 direct reference: fused rel {err_fused:.4f}, "
+    print(f"[serve] vs fp32 winograd_fp reference: fused rel "
+          f"{err_fused:.4f}, "
           f"staged rel {err_staged:.4f}, fused argmax agreement "
           f"{_agree(y_fused, y_fp):.2f}")
     for name, y in (("fused", y_fused), ("staged", y_staged),

@@ -1,9 +1,10 @@
 """Parameter declarations: one ``ParamSpec`` per tensor → initial values
 (the port's counterpart of ``repro.models.param``).
 
-Initial values come from a ``torch.Generator``: the same structure as
-the JAX package's init, its own numbers. To compute the same network as
-the JAX package, carry its weights across (``resnet.params_from_jax``).
+Initial values come from a seeded ``torch.Generator``: the same
+structure as the JAX package's init, its own numbers, so a run of the
+port starts from weights of its own. To compute the same network as the
+JAX package, carry its weights across (``resnet.params_from_jax``).
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import Any, Optional
 
 import torch
 
-__all__ = ["ParamSpec", "init_params"]
+__all__ = ["ParamSpec", "init_params", "param_count"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,3 +64,7 @@ def init_params(specs: dict, gen: torch.Generator) -> dict:
         node[path[-1]] = _materialize(spec, gen)
     return out
 
+
+def param_count(specs: dict) -> int:
+    """Number of scalars a ParamSpec tree declares."""
+    return sum(math.prod(s.shape) for _, s in _leaves(specs))

@@ -1,12 +1,18 @@
-"""ResNet18-CIFAR10, the paper's own experimental model, served through
-the port's ``ConvEngine`` (the counterpart of ``repro.models.resnet``).
+"""ResNet18-CIFAR10, the paper's own experimental model, with every
+conv routed through the port's ``ConvEngine`` (the counterpart of
+``repro.models.resnet``).
 
 The policy sends stride-1 3×3 convs to the configured Winograd backend
-and stride-2 convs / 1×1 projections to direct convolution, the split of
-the JAX model. ``ResNet`` is an ``nn.Module`` whose forward is the JAX
-``forward(training=False)``: inference-mode BatchNorm with running
-statistics. Weights keep the JAX layouts (HWIO convs, (in, out) head),
-so ``params_from_jax`` carries a JAX model across as it is.
+(fake-quant QAT for training, the int8 CUDA kernels for serving) and
+stride-2 convs / 1×1 projections to direct convolution, the split of
+the JAX model. ``ResNet`` is an ``nn.Module``: in eval mode its forward
+is the JAX ``forward(training=False)`` (BatchNorm with running
+statistics); in training mode it is ``forward(training=True)``, BatchNorm
+normalizing with the batch statistics and updating the running ones in
+place (the JAX model returns them as a new state tree). Weights keep
+the JAX layouts (HWIO convs, (in, out) head) and its tree paths as
+parameter names (``blocks.s0b0.conv1``, ``wino_flex.GP``), so
+``params_from_jax`` carries a JAX model across as it is.
 """
 from __future__ import annotations
 
@@ -20,14 +26,16 @@ import torch.nn.functional as F
 
 from repro_torch.conv import ConvEngine, ConvPolicy
 from repro_torch.core.quantization import QuantConfig
-from repro_torch.core.winograd import WinogradSpec
+from repro_torch.core.winograd import WinogradSpec, flex_init
 from repro_torch.models.param import ParamSpec
 
 __all__ = ["ResNetConfig", "ResNet", "param_specs", "state_specs",
-           "make_engine", "conv_layers", "params_from_jax", "NUM_CLASSES"]
+           "init_flex", "make_engine", "conv_layers", "params_from_jax",
+           "loss_fn", "NUM_CLASSES"]
 
 NUM_CLASSES = 10
 _STAGES = (2, 2, 2, 2)          # ResNet18 basic blocks per stage
+_BN_MOMENTUM = 0.9              # weight of the old running statistics
 _WIDTHS = (64, 128, 256, 512)
 
 
@@ -38,6 +46,7 @@ class ResNetConfig:
         m=4, r=3, base="legendre", quant=QuantConfig())
     use_winograd: bool = True    # False → direct conv everywhere (baseline)
     conv_backend: Optional[str] = None   # engine backend for eligible convs
+    flex: bool = False           # learnable transform matrices
     num_classes: int = NUM_CLASSES
 
     @property
@@ -91,7 +100,7 @@ def _iter_blocks(cfg):
 
 def param_specs(cfg: ResNetConfig) -> dict:
     w0 = cfg.widths[0]
-    return {
+    specs = {
         "stem": _conv_spec(3, w0, 3),
         "bn_stem": _bn_spec(w0),
         "head": ParamSpec((cfg.widths[-1], cfg.num_classes),
@@ -100,6 +109,11 @@ def param_specs(cfg: ResNetConfig) -> dict:
         "blocks": {nm: _block_specs(ci, co, st)
                    for nm, ci, co, st in _iter_blocks(cfg)},
     }
+    if cfg.use_winograd and cfg.flex and cfg.wino is not None:
+        specs["wino_flex"] = {
+            k: ParamSpec(tuple(v.shape), (None,) * v.ndim, init="zeros")
+            for k, v in flex_init(cfg.wino).items()}
+    return specs
 
 
 def state_specs(cfg: ResNetConfig) -> dict:
@@ -109,14 +123,20 @@ def state_specs(cfg: ResNetConfig) -> dict:
                        for nm, ci, co, st in _iter_blocks(cfg)}}
 
 
+def init_flex(cfg: ResNetConfig) -> Optional[dict]:
+    """The flex matrices' starting values (the analytic matrices, not the
+    zeros of ``param_specs``), or None without flex."""
+    return (flex_init(cfg.wino)
+            if cfg.use_winograd and cfg.flex and cfg.wino is not None
+            else None)
+
+
 def params_from_jax(params_np: dict, state_np: dict) -> tuple[dict, dict]:
     """The JAX model's parameter and state trees (nested dicts of numpy
-    arrays, e.g. ``jax.tree.map(np.asarray, params)``) → the port's trees
-    (nested dicts of fp32 CPU tensors). Layouts are shared, so the two
-    packages then compute the same network."""
-    if "wino_flex" in params_np:
-        raise NotImplementedError("flex transforms are not ported yet")
-
+    arrays, e.g. ``jax.tree.map(np.asarray, params)``, ``wino_flex``
+    included) → the port's trees (nested dicts of fp32 CPU tensors).
+    Layouts are shared, so the two packages then compute the same
+    network."""
     def conv(tree):
         if isinstance(tree, dict):
             return {k: conv(v) for k, v in tree.items()}
@@ -139,79 +159,109 @@ def make_engine(cfg: ResNetConfig, backend: Optional[str] = None,
                       device=device)
 
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t.to(torch.float32), requires_grad=False)
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t.detach().to(torch.float32).clone())
 
 
 class _BatchNorm(nn.Module):
-    """Inference-mode BatchNorm over the channel (last) axis."""
+    """BatchNorm over the channel (last) axis of NHWC, as the JAX
+    model's ``_bn``: training mode normalizes with the batch mean and
+    biased variance over (N, H, W) and sets the running statistics to
+    ``0.9·old + 0.1·batch``; eval mode uses them."""
 
     def __init__(self, p: dict, st: dict):
         super().__init__()
-        self.scale = _frozen(p["scale"])
-        self.bias = _frozen(p["bias"])
-        self.register_buffer("mean", st["mean"].to(torch.float32))
-        self.register_buffer("var", st["var"].to(torch.float32))
+        self.scale = _param(p["scale"])
+        self.bias = _param(p["bias"])
+        self.register_buffer("mean", st["mean"].to(torch.float32).clone())
+        self.register_buffer("var", st["var"].to(torch.float32).clone())
 
     def forward(self, x):
-        y = (x - self.mean) * torch.rsqrt(self.var + 1e-5)
+        if self.training:
+            var, mu = torch.var_mean(x, dim=(0, 1, 2), correction=0)
+            with torch.no_grad():
+                mom = _BN_MOMENTUM
+                self.mean.copy_(mom * self.mean + (1 - mom) * mu)
+                self.var.copy_(mom * self.var + (1 - mom) * var)
+        else:
+            mu, var = self.mean, self.var
+        y = (x - mu) * torch.rsqrt(var + 1e-5)
         return y * self.scale + self.bias
 
 
 class _Block(nn.Module):
     def __init__(self, p: dict, st: dict):
         super().__init__()
-        self.conv1 = _frozen(p["conv1"])
-        self.conv2 = _frozen(p["conv2"])
+        self.conv1 = _param(p["conv1"])
+        self.conv2 = _param(p["conv2"])
         self.bn1 = _BatchNorm(p["bn1"], st["bn1"])
         self.bn2 = _BatchNorm(p["bn2"], st["bn2"])
-        self.proj = _frozen(p["proj"]) if "proj" in p else None
+        self.proj = _param(p["proj"]) if "proj" in p else None
         self.bn_proj = (_BatchNorm(p["bn_proj"], st["bn_proj"])
                         if "proj" in p else None)
 
 
 class ResNet(nn.Module):
-    """ResNet18-CIFAR10 for inference. ``forward(images)``: (B, 32, 32, 3)
-    NHWC → logits (B, classes), every conv through ``engine`` (the
-    module's own unless one is passed, so one set of weights can serve
-    through several engines)."""
+    """ResNet18-CIFAR10. ``forward(images)``: (B, 32, 32, 3) NHWC →
+    logits (B, classes), every conv through ``engine`` (the module's own
+    unless one is passed, so one set of weights can serve through
+    several engines). Built in eval mode; ``.train()`` switches
+    BatchNorm to batch statistics. The parameters are trainable and the
+    flex matrices, where ``params`` holds ``wino_flex``, are parameters
+    too."""
 
     def __init__(self, cfg: ResNetConfig, params: dict, state: dict,
                  engine: ConvEngine):
         super().__init__()
         self.cfg = cfg
         self.engine = engine
-        self.stem = _frozen(params["stem"])
+        self.stem = _param(params["stem"])
         self.bn_stem = _BatchNorm(params["bn_stem"], state["bn_stem"])
         self.blocks = nn.ModuleDict({
             nm: _Block(params["blocks"][nm], state["blocks"][nm])
             for nm, _, _, _ in _iter_blocks(cfg)})
-        self.head = _frozen(params["head"])
-        self.head_b = _frozen(params["head_b"])
+        self.head = _param(params["head"])
+        self.head_b = _param(params["head_b"])
+        self.wino_flex = (nn.ParameterDict(
+            {k: _param(v) for k, v in params["wino_flex"].items()})
+            if "wino_flex" in params else None)
         self.to(engine.device)
         self.eval()
 
     def forward(self, images: torch.Tensor,
                 engine: Optional[ConvEngine] = None) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("BatchNorm training mode is not "
-                                      "ported yet; call .eval()")
         eng = engine or self.engine
-        x = eng.conv2d(images, self.stem, layer="stem")
+        flex = dict(self.wino_flex) if self.wino_flex is not None else None
+        x = eng.conv2d(images, self.stem, layer="stem", flex=flex)
         x = F.relu(self.bn_stem(x))
         for nm, _, _, stride in _iter_blocks(self.cfg):
             blk = self.blocks[nm]
-            h = eng.conv2d(x, blk.conv1, layer=f"{nm}.conv1", stride=stride)
+            h = eng.conv2d(x, blk.conv1, layer=f"{nm}.conv1", stride=stride,
+                           flex=flex)
             h = F.relu(blk.bn1(h))
-            h = blk.bn2(eng.conv2d(h, blk.conv2, layer=f"{nm}.conv2"))
+            h = blk.bn2(eng.conv2d(h, blk.conv2, layer=f"{nm}.conv2",
+                                   flex=flex))
             if blk.proj is not None:
                 sc = blk.bn_proj(eng.conv2d(x, blk.proj, layer=f"{nm}.proj",
-                                            stride=stride))
+                                            stride=stride, flex=flex))
             else:
                 sc = x
             x = F.relu(h + sc)
         x = x.mean(dim=(1, 2))
         return x @ self.head + self.head_b
+
+
+def loss_fn(model: ResNet, batch: dict
+            ) -> tuple[torch.Tensor, dict, torch.Tensor]:
+    """Mean cross-entropy of ``model`` on ``batch`` (``images``,
+    ``labels``) → (loss, state, acc): the JAX ``loss_fn``. ``state`` is
+    the BatchNorm running statistics by name, after this forward (in
+    training mode it has just updated them)."""
+    logits = model(batch["images"])
+    labels = batch["labels"]
+    loss = F.cross_entropy(logits, labels)
+    acc = (logits.argmax(-1) == labels).to(torch.float32).mean()
+    return loss, dict(model.named_buffers()), acc
 
 
 def conv_layers(model: ResNet):

@@ -69,7 +69,10 @@ def _port_modules():
 
 def test_port_imports_neither_jax_nor_repro():
     mods = _port_modules()
-    assert "repro_torch.kernels.ops" in mods and len(mods) >= 20
+    assert "repro_torch.kernels.ops" in mods and len(mods) >= 24
+    assert {"repro_torch.kernels.q8_matmul", "repro_torch.optim.optimizer",
+            "repro_torch.launch.train_resnet_qat",
+            "repro_torch.core.quantization"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -19,7 +19,8 @@ from repro_torch.kernels.wino_transform import (input_transform,
                                                 input_transform_plain,
                                                 output_transform,
                                                 output_transform_plain)
-from repro_torch.launch import infer_resnet
+from repro_torch.kernels.q8_matmul import q8_matmul, q8_matmul_plain
+from repro_torch.launch import infer_resnet, train_resnet_qat
 
 pytestmark = pytest.mark.gpu
 
@@ -119,7 +120,8 @@ def test_launch_counters_count_kernel_launches_only():
                     ops._operands(spec, torch.device("cpu"))["BPT"], s)
     torch.cuda.synchronize()
     assert _build.LAUNCHES == {"input_transform": 1, "output_transform": 0,
-                               "wino_gemm": 0, "fused_gemm_output": 0}
+                               "wino_gemm": 0, "fused_gemm_output": 0,
+                               "q8_matmul": 0}
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
@@ -140,4 +142,40 @@ def test_launcher_serves_through_the_kernels_on_card():
     torch.cuda.synchronize()
     assert out["packed_layers"] == 14
     assert _build.LAUNCHES["fused_gemm_output"] == 14 * out["fused_forwards"]
-    assert all(v > 0 for v in _build.LAUNCHES.values())
+    serving = ("input_transform", "wino_gemm", "output_transform",
+               "fused_gemm_output")
+    assert all(_build.LAUNCHES[k] > 0 for k in serving)
+    assert _build.LAUNCHES["q8_matmul"] == 0     # not on the serving path
+
+
+@pytest.mark.parametrize("M,K,N,out", [
+    (130, 100, 70, torch.float32),      # ragged in every dim, byte loads
+    (256, 512, 384, torch.float32),     # 8-byte loads, whole tiles
+    (8, 2048, 512, torch.float32),      # a decode M
+    (96, 64, 200, torch.bfloat16)])
+def test_q8_matmul_matches_its_plain_version_on_card(M, K, N, out):
+    dev = _card()
+    rng = np.random.default_rng(M + K + N)
+    xq = torch.from_numpy(rng.integers(-127, 128, (M, K), dtype=np.int8))
+    wq = torch.from_numpy(rng.integers(-127, 128, (K, N), dtype=np.int8))
+    sx = torch.tensor([0.0137], dtype=torch.float32)
+    sw = torch.from_numpy((rng.uniform(size=N) * 0.02 + 1e-4)
+                          .astype(np.float32))
+    _build.reset_launches()
+    got = q8_matmul(xq.to(dev), wq.to(dev), sx.to(dev), sw.to(dev),
+                    out_dtype=out)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["q8_matmul"] == 1
+    want = q8_matmul_plain(xq, wq, sx, sw, out)
+    assert got.dtype == out
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+def test_trainer_takes_a_step_on_card():
+    _card()
+    out = train_resnet_qat.main(["--width", "0.125", "--batch", "4",
+                                 "--steps", "2", "--device", "cuda"])
+    assert np.isfinite(out["losses"]).all()
+    assert all(v > 0 for v in out["param_change"].values())
+    assert all(v > 0 for v in out["bn_change"].values())
+    assert out["peak_mem_bytes"] > 0

@@ -26,6 +26,7 @@ from repro_torch.core.winograd import WinogradSpec
 from repro_torch.kernels import _build
 from repro_torch.launch import infer_resnet
 from repro_torch.models import resnet as RN
+from repro_torch.core.winograd import flex_init
 
 WIDTH, BATCH, HW = 0.125, 2, 16
 
@@ -128,11 +129,23 @@ def test_launcher_refuses_the_card_default_without_a_card():
 
 
 def test_unported_backends_and_training_mode_raise(nets):
+    """What the port did not serve before now runs: the fake-quant
+    backend (the engine's default) in eval and in training mode. What it
+    still refuses raises: flex transforms on the int8 backend."""
     cfg = nets["cfg"]
     model = RN.ResNet(cfg, nets["tp"], nets["ts"],
                       RN.make_engine(cfg, device="cpu"))  # fakequant default
-    with pytest.raises(NotImplementedError, match="not ported"):
-        model(nets["images"])
-    model.train()
-    with pytest.raises(NotImplementedError, match="training"):
-        model(nets["images"])
+    with torch.no_grad():
+        y_eval = model(nets["images"])
+        model.train()
+        y_train = model(nets["images"])
+    for y in (y_eval, y_train):
+        assert tuple(y.shape) == (BATCH, 10) and bool(torch.isfinite(y).all())
+    moved = [float((b - nets["ts"]["bn_stem"][k]).abs().max())
+             for k, b in (("mean", model.bn_stem.mean),
+                          ("var", model.bn_stem.var))]
+    assert min(moved) > 0          # training mode updated the running stats
+    eng = RN.make_engine(cfg, backend="winograd_int8", device="cpu")
+    with pytest.raises(ValueError, match="flex"):
+        eng.conv2d(nets["images"], model.stem.detach(), layer="stem",
+                   flex=flex_init(cfg.wino))
