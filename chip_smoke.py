@@ -9,14 +9,18 @@ fails the run:
 
 1. device   — name, capability (9, 0), power limit, nvcc and torch CUDA;
 2. build    — compile every kernel under ``src/repro_torch/csrc`` with
-              nvcc (``-Xptxas -v`` printed) and time it;
+              nvcc (``-Xptxas -v`` printed) and time it; count the
+              tensor-core MMA (and dp4a) instructions in the SASS of K4
+              and K5 (``cuobjdump -sass``), none allowed to have 0 MMA;
 3. kernels  — each kernel against its plain PyTorch version on the card
               at the main path's shapes (ResNet-18 width 1.0, B = 256,
-              F(4,3) Legendre, 9-bit Hadamard), plus one F(6,3) and one
-              canonical case: integer outputs bit for bit, fp32 outputs
-              within 1e-6 of their max; K5 at the llama3.2-1b projection
-              shapes (prefill M = 2048 and decode M = 8), one ragged
-              shape and one bf16 output: bit for bit;
+              F(4,3) Legendre, 9-bit Hadamard), plus F(6,3), F(2,3),
+              canonical F(4,3), ragged Cin/T/Cout and K4 with the
+              requant off: integer outputs and K4 bit for bit, K3 within
+              1e-6 of its max; K5 at the llama3.2-1b projection shapes
+              (prefill M = 2048 and decode M = 8), ragged shapes (the
+              predicated path, with and without split K), bf16 outputs
+              and saturated sums past 2^24: bit for bit;
 4. main     — ``repro_torch.launch.infer_resnet`` at width 1.0, batch
               256, 2 calibration steps: pack → calibrate → checkpoint →
               restore → serve fused and staged, its fused-vs-staged gate
@@ -28,7 +32,9 @@ fails the run:
 5. times    — CUDA-event time of each kernel at each main-path shape
               beside its bound, its plain version and a library yardstick
               (cuDNN ``F.conv2d``, ``torch._int_mm``; the port calls
-              neither), and fused images/s at B = 256;
+              neither), K4's epilogue floor (its bitwise fp32 sandwich
+              operations at 33.5 T instructions/s), and fused images/s
+              at B = 256;
 6. train    — ``repro_torch.launch.train_resnet_qat`` at width 1.0, batch
               256, F(4,3) Legendre, flex, 9-bit Hadamard, 10 steps: every
               loss finite, every parameter, the flex matrices and the
@@ -48,6 +54,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 
@@ -55,6 +62,9 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1979e12
 FP32_FLOP_S = 67e12
+# fp32 instructions per second outside the tensor cores: an FMA counts as
+# two of the 67 TFLOP/s, a lone multiply or add as one instruction
+FP32_INSTR_S = FP32_FLOP_S / 2
 
 FP32_REL = 1e-6
 BATCH = 256
@@ -87,6 +97,10 @@ LLAMA_PROJ = [("q", 2048, 2048), ("k", 2048, 512), ("v", 2048, 512),
 Q8_SHAPES = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)]
 PREFILL_M, DECODE_M = 4 * 512, 8
 TRAIN_STEPS = 10
+# Tensor-core MMA and dp4a instructions in SASS (mma.sync s8 -> IMMA,
+# wgmma -> *GMMA)
+SASS_MMA = ("IMMA", "HMMA", "IGMMA", "HGMMA", "QGMMA")
+SASS_DP4A = ("IDP.4A", "IDP4A")
 
 
 def fail(msg: str) -> None:
@@ -114,6 +128,20 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return a.elapsed_time(b) / iters
 
 
+def kernel_device_ms(fn, kernel: str, iters: int = 20) -> float:
+    """Device time per call of ``fn()`` spent in kernels whose name holds
+    ``kernel``, from the profiler: what back-to-back event timing hides
+    where a call's host work outlasts its kernel (a decode-sized K5)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(v for k, v in device_ms_by_kernel(prof, iters).items()
+               if kernel in k)
+
+
 def device_ms_by_kernel(prof, per: int = 1) -> dict:
     """Device time by kernel name (ms, divided by ``per``) from a
     ``torch.profiler`` run: device events only, since a CPU op repeats
@@ -128,6 +156,40 @@ def device_ms_by_kernel(prof, per: int = 1) -> dict:
             us = getattr(e, "cuda_time_total", 0)
         by_kernel[e.key] = by_kernel.get(e.key, 0.0) + us / 1e3 / per
     return by_kernel
+
+
+def sass_counts(lib: str) -> dict:
+    """Per kernel function of a built library: its tensor-core MMA and
+    dp4a instructions, from ``cuobjdump -sass``."""
+    from repro_torch.kernels import _build
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    counts: dict = {}
+    fn = None
+    for line in text.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = {"mma": 0, "dp4a": 0}
+        elif fn is not None and "/*" in line:
+            ins = line.split("*/", 1)[-1]
+            if any(f" {m}." in ins or f" {m} " in ins for m in SASS_MMA):
+                counts[fn]["mma"] += 1
+            if any(d in ins for d in SASS_DP4A):
+                counts[fn]["dp4a"] += 1
+    return counts
+
+
+def epilogue_ops(n: int, m: int, changes_base: bool) -> int:
+    """fp32 multiplies and adds K4's epilogue does per (tile, channel):
+    the rq (or deq) scale of each position and the sandwiches in their
+    bitwise order (unrolled for n <= 6, two contractions for n = 8),
+    none fused."""
+    def sandwich(ni, no):
+        if ni <= 6:
+            return no * no * (2 * ni * ni - 1)
+        return no * ni * (2 * ni - 1) + no * no * (2 * ni - 1)
+    return n * n + (sandwich(n, n) if changes_base else 0) + sandwich(n, m)
 
 
 def main() -> int:
@@ -174,10 +236,30 @@ def main() -> int:
     report["build_s"] = time.perf_counter() - t0
     log(f"built {built} in {report['build_s']:.1f}s ({len(_build.SOURCES)} "
         f"nvcc processes in parallel)")
+    spills = []
     for src, text in _build.BUILD_LOG.items():
         for line in text.splitlines():   # kernel, registers, smem, spills
-            if any(w in line for w in ("entry function", "Used", "spill")):
+            if any(w in line for w in ("entry function", "Used", "spill",
+                                       "warning")):
                 log(f"  {src}: {line.strip()}")
+            if "spill stores" in line and "0 bytes spill stores, 0 bytes " \
+                    "spill loads" not in line:
+                spills.append(f"{src}: {line.strip()}")
+    if spills:
+        fail(f"register spills: {spills}")
+    report["sass"] = {}
+    for src, kernel in (("fused_serve", "fused_kernel"),
+                        ("q8_matmul", "q8_wgmma_kernel")):
+        counts = {f: c for f, c in
+                  sass_counts(str(_build._target(src))).items()
+                  if kernel in f}
+        report["sass"][src] = counts
+        for f, c in counts.items():
+            log(f"  SASS {src} {f[-60:]}: {c['mma']} tensor-core MMA, "
+                f"{c['dp4a']} dp4a")
+        if not counts or any(c["mma"] == 0 for c in counts.values()):
+            fail(f"{src}: a {kernel} instantiation has no tensor-core MMA "
+                 f"instruction in its SASS ({counts})")
 
     # 3. kernels against their plain versions -------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -243,7 +325,9 @@ def main() -> int:
                                        res["output_transform"])
         errs["fused_gemm_output"] = max(errs["fused_gemm_output"],
                                         res["fused_gemm_output"])
-        log(f"{label}: Xq, int32 GEMM and requant plane bitwise; fp32 "
+        if not torch.equal(y4, y4_p):
+            fail(f"{label}: K4 is not bit for bit with its plain version")
+        log(f"{label}: Xq, int32 GEMM, requant plane and K4 bitwise; fp32 "
             f"rel err K3 {res['output_transform_rel']:.3g}, K4 "
             f"{res['fused_gemm_output_rel']:.3g}, K4 vs staged kernels "
             f"{res['fused_vs_staged_kernels_rel']:.3g}")
@@ -262,8 +346,44 @@ def main() -> int:
     report["checks"]["canonical"] = check(
         WinogradSpec(m=4, r=3, base="canonical"), 16 * BATCH, 128, 128, 8,
         "F(4,3) canonical 8-bit T=4096 C=128")
+    # K4's edges: ragged Cin, T and Cout; n = 4; the requant off
+    report["checks"]["ragged"] = check(main_spec, 1000, 19, 45, 9,
+                                       "F(4,3) legendre T=1000 Cin=19 "
+                                       "Cout=45")
+    report["checks"]["f23"] = check(WinogradSpec(m=2, r=3, base="legendre"),
+                                    4 * BATCH, 64, 200, 9,
+                                    "F(2,3) legendre T=1024 Cin=64 Cout=200")
+    for spec, T, cin, cout in ((main_spec, 16 * BATCH, 128, 128),
+                               (WinogradSpec(m=6, r=3, base="legendre"),
+                                BATCH, 512, 100)):
+        o = ops._operands(spec, dev)
+        tiles, in_s, uq, deq = inputs(spec, T, cin, cout)
+        xq = wt.input_transform(tiles, o["CinvT"], o["BPT"], in_s)
+        one = torch.ones_like(deq)
+        y4 = fs.fused_gemm_output(xq, uq, deq, one, o["CinvT"], o["APT"],
+                                  m=spec.m)
+        y4_p = fs.fused_gemm_output_plain(xq, uq, deq, one, o["CinvT"],
+                                          o["APT"], m=spec.m)
+        torch.cuda.synchronize()
+        label = f"K4 requant off F({spec.m},3) T={T} Cin={cin} Cout={cout}"
+        d = float((y4 - y4_p).abs().max())
+        errs["fused_gemm_output"] = max(errs["fused_gemm_output"], d)
+        if not torch.equal(y4, y4_p):
+            fail(f"{label}: differs from its plain version by {d}")
+        log(f"{label}: bit for bit with its plain version")
+        del tiles, xq, y4, y4_p
 
-    def q8_inputs(M, K, N):
+    def q8_inputs(M, K, N, saturated=False):
+        if saturated:   # ±127, signs aligned: |acc| > 2^24, fp32 rounds
+            xq = torch.where(torch.rand((M, K), generator=gen, device=dev)
+                             < 0.02, -127, 127).to(torch.int8)
+            xq[:, 0] = 126
+            sign = torch.where(torch.arange(N, device=dev) % 2 == 1, -1, 1)
+            wq = (torch.where(torch.rand((K, N), generator=gen, device=dev)
+                              < 0.02, -127, 127) * sign).to(torch.int8)
+            sx = torch.tensor([0.0137], device=dev)
+            sw = torch.rand((N,), generator=gen, device=dev) * 0.02 + 1e-4
+            return xq, wq, sx, sw
         xq = torch.randint(-127, 128, (M, K), generator=gen, device=dev,
                            dtype=torch.int8)
         wq = torch.randint(-127, 128, (K, N), generator=gen, device=dev,
@@ -274,16 +394,25 @@ def main() -> int:
 
     q8_cases = [(M, K, N, torch.float32) for K, N in Q8_SHAPES
                 for M in (PREFILL_M, DECODE_M)]
-    q8_cases += [(130, 100, 70, torch.float32),
-                 (PREFILL_M, 2048, 2048, torch.bfloat16)]
+    q8_cases = [c + (False,) for c in q8_cases]
+    # the predicated path (K, N not multiples of 16), with and without
+    # split K; split K at N = 512; bf16; saturated sums past 2^24
+    q8_cases += [(130, 100, 70, torch.float32, False),
+                 (33, 1000, 24, torch.float32, False),
+                 (PREFILL_M, 2048, 2048, torch.bfloat16, False),
+                 (PREFILL_M, 2048, 512, torch.bfloat16, False),
+                 (PREFILL_M, 8192, 2048, torch.float32, True),
+                 (DECODE_M, 8192, 2048, torch.bfloat16, True)]
     report["checks"]["q8_matmul"] = {}
-    for M, K, N, odt in q8_cases:
-        xq, wq, sx, sw = q8_inputs(M, K, N)
+    for M, K, N, odt, sat in q8_cases:
+        xq, wq, sx, sw = q8_inputs(M, K, N, sat)
         a = q8.q8_matmul(xq, wq, sx, sw, out_dtype=odt)
         b = q8.q8_matmul_plain(xq, wq, sx, sw, out_dtype=odt)
         torch.cuda.synchronize()
         d = float((a.float() - b.float()).abs().max())
-        label = f"K5 M={M} K={K} N={N} {str(odt).split('.')[-1]}"
+        label = (f"K5 M={M} K={K} N={N} {str(odt).split('.')[-1]}"
+                 f"{' saturated' if sat else ''} "
+                 f"split {q8.q8_splits(M, N, K)}")
         report["checks"]["q8_matmul"][label] = d
         errs["q8_matmul"] = max(errs["q8_matmul"], d)
         if a.dtype != odt or not torch.equal(a, b):
@@ -432,9 +561,23 @@ def main() -> int:
                 f"{max(b_ms, o_ms):.4f} ms ({'bytes' if b_ms >= o_ms else 'operations'}), "
                 f"plain {t_p:.3f} ms, library "
                 f"{'-' if t_l is None else f'{t_l:.4f} ms'}")
+        floor = T * cout * epilogue_ops(n, m, True) / FP32_INSTR_S * 1e3
+        rows["fused_gemm_output"]["epilogue_floor_ms"] = floor
+        per["fused_gemm_output"]["epilogue_floor_ms"] = \
+            per["fused_gemm_output"].get("epilogue_floor_ms", 0.0) + \
+            count * floor
+        log(f"time {lname:4s} K4 epilogue floor (bitwise sandwiches, "
+            f"{epilogue_ops(n, m, True)} fp32 ops per (t, c)): {floor:.4f} ms")
         layer_times[lname] = rows
         del tiles, xq, acc, hq
     report["layer_times"] = layer_times
+    for k in SERVING:
+        r = per[k]
+        log(f"per fused forward {k:17s}: kernel {r['ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, library "
+            f"{r['library_ms']:.4f} ms"
+            + (f", epilogue floor {r['epilogue_floor_ms']:.4f} ms"
+               if "epilogue_floor_ms" in r else ""))
 
     # K5 at the llama3.2-1b projection shapes, prefill and decode
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -446,6 +589,8 @@ def main() -> int:
             b_ms = nbytes / HBM_BYTES_S * 1e3
             o_ms = 2 * M * K * N / INT8_OPS_S * 1e3
             t_k = time_ms(lambda: q8.q8_matmul(xq, wq, sx, sw))
+            t_d = kernel_device_ms(lambda: q8.q8_matmul(xq, wq, sx, sw),
+                                   "q8_wgmma_kernel")
             t_p = time_ms(lambda: q8.q8_matmul_plain(xq, wq, sx, sw),
                           iters=3, warmup=1)
             # torch._int_mm takes M > 16: a decode M is padded to 32 rows
@@ -454,21 +599,47 @@ def main() -> int:
             t_l = time_ms(lambda: torch._int_mm(xa, wq))
             t_le = time_ms(lambda: torch._int_mm(xa, wq).float() * sx * sw)
             q8_rows[f"M={M} K={K} N={N}"] = {
-                "ms": t_k, "plain_ms": t_p, "bytes_ms": b_ms, "ops_ms": o_ms,
+                "ms": t_k, "device_ms": t_d, "plain_ms": t_p,
+                "bytes_ms": b_ms, "ops_ms": o_ms,
                 "bound_ms": max(b_ms, o_ms), "int_mm_ms": t_l,
                 "int_mm_epilogue_ms": t_le}
-            log(f"time K5 M={M:4d} K={K:4d} N={N:4d}: kernel {t_k:.4f} ms, "
-                f"bound {max(b_ms, o_ms):.4f} ms "
+            log(f"time K5 M={M:4d} K={K:4d} N={N:4d}: kernel {t_k:.4f} ms "
+                f"(device {t_d:.4f} ms), bound {max(b_ms, o_ms):.4f} ms "
                 f"({'bytes' if b_ms >= o_ms else 'operations'}), plain "
                 f"{t_p:.3f} ms, _int_mm {t_l:.4f} ms, _int_mm + epilogue "
                 f"{t_le:.4f} ms")
             del xq, wq, xa
     report["q8_times"] = q8_rows
+    # K5 at the decode shapes under every split of K, the one q8_splits
+    # picks among them (the wrapper with its split choice swapped): event
+    # time of back-to-back calls and the kernel's device time per call
+    sweep = {}
+    for K, N in Q8_SHAPES:
+        xq, wq, sx, sw = q8_inputs(DECODE_M, K, N)
+        steps = -(-K // q8.TILE[2])
+        row = {}
+        for s_try in (1, 2, 4, 8, 16, 32):
+            if s_try > steps:
+                break
+            with mock.patch.object(q8, "q8_splits", lambda *_: s_try):
+                row[s_try] = {
+                    "ms": time_ms(lambda: q8.q8_matmul(xq, wq, sx, sw)),
+                    "device_ms": kernel_device_ms(
+                        lambda: q8.q8_matmul(xq, wq, sx, sw),
+                        "q8_wgmma_kernel")}
+        sweep[f"M={DECODE_M} K={K} N={N}"] = row
+        log(f"time K5 M={DECODE_M} K={K:4d} N={N:4d} by split of K "
+            f"(chosen {q8.q8_splits(DECODE_M, N, K)}), events / device: "
+            + ", ".join(f"{k}: {v['ms']:.4f} / {v['device_ms']:.4f} ms"
+                        for k, v in row.items()))
+        del xq, wq
+    report["q8_split_sweep"] = sweep
     report["q8_layer_set"] = {}
     for M in (PREFILL_M, DECODE_M):
         tot = {f: sum(q8_rows[f"M={M} K={K} N={N}"][f]
                       for _, K, N in LLAMA_PROJ)
-               for f in ("ms", "plain_ms", "bytes_ms", "ops_ms", "bound_ms",
+               for f in ("ms", "device_ms", "plain_ms", "bytes_ms", "ops_ms",
+                         "bound_ms",
                          "int_mm_ms", "int_mm_epilogue_ms")}
         report["q8_layer_set"][M] = tot
         log(f"K5 over one llama3.2-1b layer's 7 projections at M={M}: "
@@ -575,6 +746,8 @@ def main() -> int:
             "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"]
             else "operations",
             "library_ms": r["library_ms"] if r["library_ms"] else None})
+        if "epilogue_floor_ms" in r:
+            kernels[-1]["epilogue_floor_ms"] = r["epilogue_floor_ms"]
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -21,6 +21,10 @@ extern "C" const char* repro_cuda_error_string(int e) {
 
 namespace repro {
 
+// Devices a launcher keeps per-device state for (a kernel's shared-memory
+// attribute, set once).
+constexpr int kMaxDevices = 64;
+
 // Windows up to this size run the unrolled sandwich; larger windows
 // (F(6,3): n = 8) run two contractions, as the JAX kernels do.
 constexpr int kUnrollMaxN = 6;

@@ -43,6 +43,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 LAUNCHES: dict[str, int] = {k: 0 for ks in SOURCES.values() for k in ks}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# C entry points with their argument types set, by (source, name)
+_FNS: dict = {}
 #: ``-Xptxas -v`` output (registers, shared memory, spills) per source.
 BUILD_LOG: dict[str, str] = {}
 
@@ -123,16 +125,18 @@ def launch(source: str, fn_name: str, argtypes: tuple, *args) -> None:
     """Call the C entry ``fn_name`` of ``csrc/<source>.cu`` and raise if
     it returns a CUDA error. Tensor arguments pass as device pointers,
     None as a null pointer."""
-    lib = load(source)
-    fn = getattr(lib, fn_name)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    fn = _FNS.get((source, fn_name))
+    if fn is None:
+        fn = getattr(load(source), fn_name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _FNS[(source, fn_name)] = fn
     rc = fn(*(ptr(a) if isinstance(a, torch.Tensor) else a for a in args))
     if rc != 0:
         shapes = " ".join(str(tuple(a.shape)) for a in args
                           if isinstance(a, torch.Tensor))
-        raise RuntimeError(f"{fn_name}: CUDA error {rc} "
-                           f"({lib.repro_cuda_error_string(rc).decode()}) "
+        msg = load(source).repro_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{fn_name}: CUDA error {rc} ({msg}) "
                            f"on {shapes}")
 
 
@@ -159,7 +163,12 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    """The device's current CUDA stream as a pointer, from PyTorch's raw
+    getter: it skips building a ``torch.cuda.Stream`` (several µs a call,
+    which a decode-sized launch notices)."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(index))
 
 
 def cuda_device(t: torch.Tensor, what: str) -> torch.device:

@@ -15,6 +15,7 @@ see, so calibration and dynamic requant stay on the staged path
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -26,10 +27,73 @@ from repro_torch.kernels.wino_gemm import requant_plane
 from repro_torch.kernels.wino_transform import _N_SUPPORTED, _side, sandwich
 
 __all__ = ["fused_gemm_output", "fused_gemm_output_plain",
-           "hadamard_plane_plain"]
+           "hadamard_plane_plain", "fused_tile", "fused_smem_bytes"]
 
-# The kernel's grid puts Cout / 32 on its y axis (at most 65535 blocks).
+# The kernel's grid puts Cout / BC on its y axis (at most 65535 blocks).
 _MAX_COUT = 65535 * 32
+#: The kernel's block tiles (tiles, output channels), largest first, and
+#: the threads of each (one warp per 16 x 8 .. 16 x 16 piece).
+TILES = ((32, 32), (16, 32))
+THREADS = {(32, 32): 256, (16, 32): 128}
+#: Shared memory one block may use on an H100, and the stash size that
+#: still lets two blocks share an SM (one block's GEMM then overlaps
+#: another's epilogue).
+SMEM_LIMIT = 232448
+STASH_BUDGET = 96 * 1024
+SMS = 132
+_UNROLL_MAX_N = 6       # common.cuh kUnrollMaxN
+_ROW = 64 + 16          # fused_serve.cu kRow
+_STAGES = 4             # fused_serve.cu kStages
+
+
+def _operand_floats(ni: int, no: int) -> int:
+    return no * no * ni * ni if ni <= _UNROLL_MAX_N else 2 * no * ni
+
+
+def fused_smem_bytes(n: int, bt: int, bc: int, requant: bool) -> int:
+    """Dynamic shared memory of one K4 block (``fused_serve.cu``
+    smem_bytes): term tables, deq and rq, the ring of Xq slabs and of raw
+    u_q blocks, two K-major u_q slabs, and the stash of all n² positions
+    (int16 grid values with the requant on, fp32 with it off)."""
+    m = n - 2
+    tables = 4 * (_operand_floats(n, n) + _operand_floats(n, m) + 2 * n * n)
+    tables = -(-tables // 16) * 16
+    nt = THREADS[(bt, bc)]
+    u_raw = -(-4 * bc // nt) * nt * 16   # each thread's raw u_q blocks
+    return (tables + _STAGES * (bt * _ROW + u_raw) + 2 * bc * _ROW
+            + n * n * bt * bc * (2 if requant else 4))
+
+
+def fused_tile(n: int, T: int, cout: int, requant: bool) -> tuple:
+    """K4's block tile for one shape: the largest tile whose stash stays
+    within ``STASH_BUDGET`` and whose grid fills the card's SMs; where no
+    tile does both, the one of those that fit shared memory with the most
+    blocks."""
+    fits = [t for t in TILES
+            if fused_smem_bytes(n, *t, requant) <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"no K4 tile fits shared memory at n = {n}")
+
+    def blocks(t):
+        return math.ceil(T / t[0]) * math.ceil(cout / t[1])
+    for t in fits:
+        stash = n * n * t[0] * t[1] * (2 if requant else 4)
+        if stash <= STASH_BUDGET and blocks(t) >= SMS:
+            return t
+    return max(fits, key=lambda t: (blocks(t), -t[0] * t[1]))
+
+
+def _terms(L: torch.Tensor, ni: int) -> torch.Tensor:
+    """One sandwich operand as the kernel takes it: for ni <= 6 the
+    products L[a][j] · L[b][k] (the same fp32 products as ``__fmul_rn``)
+    laid out [j][k][a][b], so that a 16-byte load holds four outputs'
+    terms; else L twice (common.cuh kOperandFloats)."""
+    if ni <= _UNROLL_MAX_N:
+        no = L.shape[0]
+        out = torch.empty((ni, ni, no, no), dtype=L.dtype, device=L.device)
+        return torch.mul(L.T[:, None, :, None], L.T[None, :, None, :],
+                         out=out)
+    return torch.cat([L.reshape(-1), L.reshape(-1)])
 
 
 def hadamard_plane_plain(xq: torch.Tensor, u_q: torch.Tensor,
@@ -92,18 +156,21 @@ def fused_gemm_output(xq: torch.Tensor, u_q: torch.Tensor,
         raise ValueError(f"Cin = {K}, Cout = {N}: the kernel takes Cin >= 1 "
                          f"and Cout <= {_MAX_COUT}")
     f32 = torch.float32
-    _build.require(xq, "xq", torch.int8, (P, T, K), dev)
-    _build.require(u_q, "u_q", torch.int8, (P, K, N), dev)
+    _build.require(xq, "xq", torch.int8, (P, T, K), dev, aligned=True)
+    _build.require(u_q, "u_q", torch.int8, (P, K, N), dev, aligned=True)
     _build.require(deq, "deq", f32, (P, 1), dev)
     _build.require(rq, "rq", f32, (P, 1), dev)
     _build.require(cinvt, "cinvt", f32, (n, n), dev)
     _build.require(apt, "apt", f32, (m, n), dev)
     qm = 0 if requant_bits is None else qmax(requant_bits)
+    # made once a call by two small multiplies, not by every block
+    tbase, ta = _terms(cinvt, n), _terms(apt, n)
+    bt, bc = fused_tile(n, T, N, qm > 0)
     out = torch.empty((T, N, m, m), dtype=f32, device=dev)
     I, Pt = _build.INT, _build.PTR
     _build.launch("fused_serve", "fused_gemm_output",
-                  (Pt,) * 7 + (I,) * 6 + (Pt,),
-                  xq, u_q, deq, rq, cinvt, apt, out, n, T, K, N, qm,
-                  int(changes_base), _build.stream(dev))
+                  (Pt,) * 7 + (I,) * 8 + (Pt,),
+                  xq, u_q, deq, rq, tbase, ta, out, n, T, K, N, qm,
+                  int(changes_base), bt, bc, _build.stream(dev))
     _build.LAUNCHES["fused_gemm_output"] += 1
     return out

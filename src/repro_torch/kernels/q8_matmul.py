@@ -8,16 +8,52 @@ scheme applied to transformer projections (``ops.q8_linear``).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import q8_matmul_ref
 
-__all__ = ["q8_matmul", "q8_matmul_plain"]
+__all__ = ["q8_matmul", "q8_matmul_plain", "q8_splits"]
 
-# The kernel's grid puts M / 64 on its y axis (at most 65535 blocks).
-_MAX_M = 65535 * 64
+# The kernel's grid puts M / 128 on its y axis (at most 65535 blocks).
+_MAX_M = 65535 * 128
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
+#: The kernel's block tile (rows, columns, k per stage) and the card's SMs.
+TILE = (128, 128, 128)
+SMS = 132
+
+
+def q8_splits(M: int, N: int, K: int) -> int:
+    """How many blocks share one output tile's K range: 1 where the
+    (M, N) grid of 128 x 128 tiles fills the card's SMs; else (a decode
+    M, or few columns) enough to reach ``SMS`` blocks, each with a whole
+    number of 128-deep steps."""
+    bm, bn, bk = TILE
+    tiles = math.ceil(M / bm) * math.ceil(N / bn)
+    steps = math.ceil(K / bk)
+    if tiles >= SMS or steps <= 1:
+        return 1
+    per = math.ceil(steps / min(steps, math.ceil(SMS / tiles)))
+    return math.ceil(steps / per)
+
+
+# Split-K workspaces per (device, stream): int32 partial sums and per-tile
+# arrival counters, zero between calls (the kernel leaves them so), grown
+# as needed. Keyed by stream so that calls on two streams never share one.
+_WORKSPACES: dict = {}
+
+
+def _workspace(dev: torch.device, stream: int, sums: int, tiles: int):
+    key = (dev.index, stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws[0].numel() < sums or ws[1].numel() < tiles:
+        old = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
+        ws = (torch.zeros(max(sums, old[0]), dtype=torch.int32, device=dev),
+              torch.zeros(max(tiles, old[1]), dtype=torch.int32, device=dev))
+        _WORKSPACES[key] = ws
+    return ws
 
 
 def q8_matmul_plain(x_q: torch.Tensor, w_q: torch.Tensor, s_x: torch.Tensor,
@@ -50,17 +86,25 @@ def q8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, s_x: torch.Tensor,
     if x_q.device.type == "cpu":
         return q8_matmul_plain(x_q, w_q, s_x, s_w, out_dtype)
     dev = _build.cuda_device(x_q, "q8_matmul")
-    if M > _MAX_M:
-        raise ValueError(f"M = {M} exceeds the kernel's grid ({_MAX_M})")
+    if M > _MAX_M or K < 1:
+        raise ValueError(f"M = {M}, K = {K}: the kernel takes 1 <= K and "
+                         f"M <= {_MAX_M}")
     _build.require(x_q, "x_q", torch.int8, (M, K), dev, aligned=True)
     _build.require(w_q, "w_q", torch.int8, (K, N), dev, aligned=True)
     _build.require(s_x.reshape(1), "s_x", torch.float32, (1,), dev)
     _build.require(s_w, "s_w", torch.float32, (N,), dev)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    splits = q8_splits(M, N, K)
+    stream = _build.stream(dev)
+    ws = counters = None
+    if splits > 1:
+        bm, bn, _ = TILE
+        ws, counters = _workspace(dev, stream.value, M * N,
+                                  math.ceil(M / bm) * math.ceil(N / bn))
     I, Pt = _build.INT, _build.PTR
     _build.launch("q8_matmul", "q8_matmul",
-                  (Pt, Pt, Pt, Pt, Pt, I, I, I, I, Pt),
-                  x_q, w_q, s_x, s_w, out, M, N, K,
-                  int(out_dtype == torch.bfloat16), _build.stream(dev))
+                  (Pt,) * 7 + (I,) * 5 + (Pt,),
+                  x_q, w_q, s_x, s_w, out, ws, counters, M, N, K, splits,
+                  int(out_dtype == torch.bfloat16), stream)
     _build.LAUNCHES["q8_matmul"] += 1
     return out

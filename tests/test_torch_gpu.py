@@ -19,7 +19,9 @@ from repro_torch.kernels.wino_transform import (input_transform,
                                                 input_transform_plain,
                                                 output_transform,
                                                 output_transform_plain)
+from repro_torch.kernels.q8_matmul import _WORKSPACES as q8_workspaces
 from repro_torch.kernels.q8_matmul import q8_matmul, q8_matmul_plain
+from repro_torch.kernels.q8_matmul import q8_splits as q8_matmul_splits
 from repro_torch.launch import infer_resnet, train_resnet_qat
 
 pytestmark = pytest.mark.gpu
@@ -109,6 +111,42 @@ def test_kernels_match_plain_versions_on_card(m, base, bits):
         assert _rel(got, staged) <= FP32_REL
 
 
+# K4 at the kernel's edges: (m, base, requant bits, T, Cin, Cout). Cin = 3
+# (the stem: rows not 16-byte aligned), 19 (ragged) and 512 (eight 64-deep
+# slabs); T and Cout off every block tile; n = 4, 6, 8; every stash type.
+FUSED_EDGE_CASES = [
+    (4, "legendre", 9, 70, 3, 64),
+    (4, "legendre", 9, 45, 19, 45),
+    (4, "legendre", 9, 33, 512, 40),
+    (4, "legendre", None, 100, 64, 70),
+    (4, "canonical", 8, 50, 128, 96),
+    (2, "legendre", 9, 300, 32, 200),
+    (2, "canonical", None, 40, 3, 33),
+    (6, "legendre", 9, 37, 130, 50),
+    (6, "legendre", None, 20, 64, 36),
+    (6, "canonical", 8, 17, 19, 65),
+]
+
+
+@pytest.mark.parametrize("m,base,bits,T,cin,cout", FUSED_EDGE_CASES)
+def test_fused_kernel_is_bitwise_at_its_edges_on_card(m, base, bits, T, cin,
+                                                      cout):
+    dev = _card()
+    spec, _, _, _, xq, uq, deq = _inputs(m, base, seed=T + cin + cout, T=T,
+                                         cin=cin, cout=cout)
+    rq = torch.ones_like(deq) if bits is None else _rq(xq, uq, deq, bits)
+    o_cpu = ops._operands(spec, torch.device("cpu"))
+    o_dev = ops._operands(spec, dev)
+    cb = spec.changes_base
+    got = fused_gemm_output(xq.to(dev), uq.to(dev), deq.to(dev), rq.to(dev),
+                            o_dev["CinvT"], o_dev["APT"], m=m,
+                            requant_bits=bits, changes_base=cb)
+    want = fused_gemm_output_plain(xq, uq, deq, rq, o_cpu["CinvT"],
+                                   o_cpu["APT"], m=m, requant_bits=bits,
+                                   changes_base=cb)
+    assert torch.equal(got.cpu(), want)
+
+
 def test_launch_counters_count_kernel_launches_only():
     dev = _card()
     spec, tiles, s, h, xq, uq, deq = _inputs(4, "legendre", seed=3)
@@ -132,6 +170,18 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         input_transform(tiles.to(dev), ops_dev["CinvT"], ops_dev["BPT"], s)
     with pytest.raises(ValueError):       # wrong dtype
         wino_gemm(xq.to(dev).to(torch.int32), uq.to(dev))
+    # u_q as a contiguous view 4 bytes into its storage: K4 reads it with
+    # 4-byte cp.async, so the wrapper refuses it instead of faulting
+    P, cin, cout = uq.shape
+    flat = torch.zeros(4 + uq.numel(), dtype=torch.int8, device=dev)
+    u_off = flat[4:].view(P, cin, cout)
+    u_off.copy_(uq.to(dev))
+    o = ops._operands(spec, dev)
+    with pytest.raises(ValueError, match="aligned"):
+        fused_gemm_output(xq.to(dev), u_off, deq.to(dev),
+                          torch.ones_like(deq).to(dev), o["CinvT"],
+                          o["APT"], m=spec.m, requant_bits=None,
+                          changes_base=spec.changes_base)
 
 
 def test_launcher_serves_through_the_kernels_on_card():
@@ -149,9 +199,13 @@ def test_launcher_serves_through_the_kernels_on_card():
 
 
 @pytest.mark.parametrize("M,K,N,out", [
-    (130, 100, 70, torch.float32),      # ragged in every dim, byte loads
-    (256, 512, 384, torch.float32),     # 8-byte loads, whole tiles
-    (8, 2048, 512, torch.float32),      # a decode M
+    (130, 100, 70, torch.float32),      # ragged in every dim: byte loads
+    (256, 512, 384, torch.float32),     # K, N multiples of 16: TMA
+    (300, 160, 400, torch.float32),     # TMA with ragged tiles
+    (8, 2048, 512, torch.float32),      # a decode M: split K
+    (8, 8192, 2048, torch.float32),     # a decode M at K = 8192: split K
+    (2048, 2048, 512, torch.bfloat16),  # few column tiles: split K
+    (33, 1000, 24, torch.float32),      # ragged K and N, split K
     (96, 64, 200, torch.bfloat16)])
 def test_q8_matmul_matches_its_plain_version_on_card(M, K, N, out):
     dev = _card()
@@ -169,6 +223,53 @@ def test_q8_matmul_matches_its_plain_version_on_card(M, K, N, out):
     want = q8_matmul_plain(xq, wq, sx, sw, out)
     assert got.dtype == out
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("M,out", [(64, torch.float32),
+                                   (8, torch.bfloat16)])
+def test_q8_matmul_is_bitwise_past_2_24_on_card(M, out):
+    """Saturated ±127 operands at K = 8192: |acc| reaches 1.3e8, where
+    int32 → fp32 rounds."""
+    dev = _card()
+    K, N = 8192, 256
+    rng = np.random.default_rng(M)
+    xq = np.full((M, K), 127, dtype=np.int8)
+    xq[rng.uniform(size=(M, K)) < 0.01] = -127
+    wq = np.repeat(np.where(rng.uniform(size=(1, N)) < 0.5, 127, -127)
+                   .astype(np.int8), K, axis=0)
+    wq[rng.uniform(size=(K, N)) < 0.01] *= -1
+    xq, wq = torch.from_numpy(xq), torch.from_numpy(wq)
+    sx = torch.tensor([0.0137], dtype=torch.float32)
+    sw = torch.from_numpy((rng.uniform(size=N) * 0.02 + 1e-4)
+                          .astype(np.float32))
+    acc = xq.double() @ wq.double()
+    assert float(acc.abs().max()) > 2 ** 24
+    got = q8_matmul(xq.to(dev), wq.to(dev), sx.to(dev), sw.to(dev),
+                    out_dtype=out)
+    want = q8_matmul_plain(xq, wq, sx, sw, out)
+    assert got.dtype == out
+    assert torch.equal(got.cpu(), want)
+
+
+def test_q8_matmul_split_workspace_is_left_clean_on_card():
+    """Split-K calls share one zeroed workspace per stream: each call must
+    leave it zero, so calls in a row (and a shape that grows it) stay bit
+    for bit."""
+    dev = _card()
+    rng = np.random.default_rng(5)
+    for M, K, N in [(8, 2048, 512), (33, 1000, 24), (8, 2048, 512),
+                    (16, 4096, 1024), (8, 2048, 512)]:
+        assert q8_matmul_splits(M, N, K) > 1
+        xq = torch.from_numpy(rng.integers(-127, 128, (M, K), dtype=np.int8))
+        wq = torch.from_numpy(rng.integers(-127, 128, (K, N), dtype=np.int8))
+        sx = torch.tensor([0.0137], dtype=torch.float32)
+        sw = torch.from_numpy((rng.uniform(size=N) * 0.02 + 1e-4)
+                              .astype(np.float32))
+        got = q8_matmul(xq.to(dev), wq.to(dev), sx.to(dev), sw.to(dev))
+        assert torch.equal(got.cpu(), q8_matmul_plain(xq, wq, sx, sw))
+    torch.cuda.synchronize()
+    for ws, counters in q8_workspaces.values():
+        assert not ws.any() and not counters.any()
 
 
 def test_trainer_takes_a_step_on_card():

@@ -58,6 +58,14 @@ def _q8_inputs(M, K, N, seed):
     rng = np.random.default_rng(seed)
     xq = rng.integers(-127, 128, (M, K), dtype=np.int8)
     wq = rng.integers(-127, 128, (K, N), dtype=np.int8)
+    if (M, K, N) == SATURATED:
+        # ±127 with aligned signs: |acc| up to K·127² > 2²⁴, where the
+        # int32 → fp32 conversion rounds
+        xq = np.where(rng.uniform(size=(M, K)) < 0.02, -127, 127)
+        wq = np.where(rng.uniform(size=(K, N)) < 0.02, -127, 127)
+        wq = wq * np.where(np.arange(N) % 2, -1, 1)
+        xq[:, 0] = 126                   # odd sums, so that fp32 rounds
+        xq, wq = xq.astype(np.int8), wq.astype(np.int8)
     sx = np.float32(0.013)
     sw = (rng.uniform(size=N) * 0.02 + 1e-4).astype(np.float32)
     return xq, wq, sx, sw
@@ -71,7 +79,8 @@ def _q8_linear_inputs():
 
 BITS_AXES = [(bits, axis) for bits in (8, 9) for axis in (None, (0, 2, 3))]
 QUANT_CASES = [(bits, axis) for bits in (8, 9) for axis in (None, (1,))]
-Q8_SHAPES = [(64, 48, 32), (130, 100, 70), (8, 8, 8)]
+SATURATED = (8, 2048, 8)
+Q8_SHAPES = [(64, 48, 32), (130, 100, 70), (8, 8, 8), SATURATED]
 OUT_DTYPES = ["float32", "bfloat16"]
 
 
@@ -206,10 +215,14 @@ def test_quantize_int_refuses_a_narrow_dtype():
     assert q.dtype == torch.int32
 
 
-@pytest.mark.parametrize("M,K,N", [(64, 48, 32), (130, 100, 70), (8, 8, 8)])
+@pytest.mark.parametrize("M,K,N", Q8_SHAPES)
 @pytest.mark.parametrize("out", ["float32", "bfloat16"])
 def test_q8_matmul_plain_matches_the_jax_reference(M, K, N, out, jax_refs):
     xq, wq, sx, sw = _q8_inputs(M, K, N, seed=M + K + N)
+    if (M, K, N) == SATURATED:
+        acc = xq.astype(np.int64) @ wq.astype(np.int64)
+        assert np.abs(acc).max() > 2 ** 24
+        assert np.any(acc.astype(np.float32).astype(np.int64) != acc)
     jout = jax_refs[("q8", M, K, N, out)].result()
     tdt = getattr(torch, out)
     got = q8_matmul(torch.from_numpy(xq), torch.from_numpy(wq),
