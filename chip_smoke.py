@@ -9,18 +9,24 @@ fails the run:
 
 1. device   — name, capability (9, 0), power limit, nvcc and torch CUDA;
 2. build    — compile every kernel under ``src/repro_torch/csrc`` with
-              nvcc (``-Xptxas -v`` printed) and time it; count the
-              tensor-core MMA (and dp4a) instructions in the SASS of K4
-              and K5 (``cuobjdump -sass``), none allowed to have 0 MMA;
+              nvcc (``-Xptxas -v`` printed; any spill fails) and time it;
+              count the tensor-core MMA and dp4a instructions in the SASS
+              of K2, K4 and K5 (``cuobjdump -sass``): every instantiation
+              needs >= 1 MMA, and K2's no dp4a; log every kernel's
+              registers and instruction count, and K1's shared-memory
+              loads per fp32 multiply;
 3. kernels  — each kernel against its plain PyTorch version on the card
               at the main path's shapes (ResNet-18 width 1.0, B = 256,
               F(4,3) Legendre, 9-bit Hadamard), plus F(6,3), F(2,3),
               canonical F(4,3), ragged Cin/T/Cout and K4 with the
               requant off: integer outputs and K4 bit for bit, K3 within
-              1e-6 of its max; K5 at the llama3.2-1b projection shapes
-              (prefill M = 2048 and decode M = 8), ragged shapes (the
-              predicated path, with and without split K), bf16 outputs
-              and saturated sums past 2^24: bit for bit;
+              1e-6 of its max; K1 and K2 at their edges (ragged T, T off
+              K1's 256-window chunk, Cin 3 and 19, Cout 45, n = 4/6/8,
+              requant off/8/9 bits, K2 sums past 2^24): bit for bit; K5
+              at the llama3.2-1b projection shapes (prefill M = 2048 and
+              decode M = 8), ragged shapes (the predicated path, with and
+              without split K), bf16 outputs and saturated sums past 2^24:
+              bit for bit;
 4. main     — ``repro_torch.launch.infer_resnet`` at width 1.0, batch
               256, 2 calibration steps: pack → calibrate → checkpoint →
               restore → serve fused and staged, its fused-vs-staged gate
@@ -32,9 +38,10 @@ fails the run:
 5. times    — CUDA-event time of each kernel at each main-path shape
               beside its bound, its plain version and a library yardstick
               (cuDNN ``F.conv2d``, ``torch._int_mm``; the port calls
-              neither), K4's epilogue floor (its bitwise fp32 sandwich
-              operations at 33.5 T instructions/s), and fused images/s
-              at B = 256;
+              neither), the floors of K1, K3 and K4's epilogue (their
+              bitwise-order fp32 sandwich operations at 33.5 T
+              instructions/s), K2 under each count of positions a block, and
+              fused images/s at B = 256;
 6. train    — ``repro_torch.launch.train_resnet_qat`` at width 1.0, batch
               256, F(4,3) Legendre, flex, 9-bit Hadamard, 10 steps: every
               loss finite, every parameter, the flex matrices and the
@@ -98,9 +105,24 @@ Q8_SHAPES = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)]
 PREFILL_M, DECODE_M = 4 * 512, 8
 TRAIN_STEPS = 10
 # Tensor-core MMA and dp4a instructions in SASS (mma.sync s8 -> IMMA,
-# wgmma -> *GMMA)
+# wgmma -> *GMMA); shared-memory loads and fp32 multiplies
 SASS_MMA = ("IMMA", "HMMA", "IGMMA", "HGMMA", "QGMMA")
 SASS_DP4A = ("IDP.4A", "IDP4A")
+SASS_LDS = ("LDS",)
+SASS_FMUL = ("FMUL",)
+# K1 and K2 at their edges: (m, base, requant bits, T, Cin, Cout). T*Cin
+# off a multiple of 16 sends K1 to its byte stores; T = 301 leaves a
+# partial 256-window chunk; Cin = 3 (the stem) and 19 are unaligned rows
+# for K2; n = 4, 6, 8.
+K12_EDGES = [(4, "legendre", 9, 1000, 19, 45),
+             (4, "legendre", 8, 301, 64, 45),
+             (4, "legendre", None, 1000, 3, 64),
+             (2, "legendre", 9, 777, 19, 45),
+             (2, "canonical", None, 1000, 3, 45),
+             (6, "legendre", 8, 301, 64, 45),
+             (6, "canonical", 9, 1000, 19, 130)]
+# K2 with saturated operands: P, M, K, N (|acc| past 2^24)
+K2_SATURATED = [(16, 300, 1200, 64), (36, 100, 1100, 45)]
 
 
 def fail(msg: str) -> None:
@@ -159,10 +181,23 @@ def device_ms_by_kernel(prof, per: int = 1) -> dict:
 
 
 def sass_counts(lib: str) -> dict:
-    """Per kernel function of a built library: its tensor-core MMA and
-    dp4a instructions, from ``cuobjdump -sass``."""
+    """Per kernel function of a built library: its registers (``cuobjdump
+    -res-usage``), its instructions, and among them its tensor-core MMA,
+    dp4a, shared-memory load (LDS) and fp32 multiply (FMUL) instructions
+    (``cuobjdump -sass``)."""
     from repro_torch.kernels import _build
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    regs: dict = {}
+    fn = None
+    for line in subprocess.run([str(cuobjdump), "-res-usage", lib],
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines():
+        line = line.strip()
+        if line.startswith("Function ") and line.endswith(":"):
+            fn = line[len("Function "):-1]
+        elif fn is not None and line.startswith("REG:"):
+            regs[fn] = int(line.split()[0][len("REG:"):])
+            fn = None
     text = subprocess.run([str(cuobjdump), "-sass", lib], capture_output=True,
                           text=True, check=True).stdout
     counts: dict = {}
@@ -170,26 +205,40 @@ def sass_counts(lib: str) -> dict:
     for line in text.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = {"mma": 0, "dp4a": 0}
+            counts[fn] = {"registers": regs.get(fn), "mma": 0, "dp4a": 0,
+                          "lds": 0, "fmul": 0, "instructions": 0}
         elif fn is not None and "/*" in line:
             ins = line.split("*/", 1)[-1]
-            if any(f" {m}." in ins or f" {m} " in ins for m in SASS_MMA):
-                counts[fn]["mma"] += 1
+            if ins.strip(" ;"):
+                counts[fn]["instructions"] += 1
+            for key, names in (("mma", SASS_MMA), ("lds", SASS_LDS),
+                               ("fmul", SASS_FMUL)):
+                if any(f" {m}." in ins or f" {m} " in ins for m in names):
+                    counts[fn][key] += 1
             if any(d in ins for d in SASS_DP4A):
                 counts[fn]["dp4a"] += 1
     return counts
 
 
+def sandwich_ops(ni: int, no: int) -> int:
+    """fp32 multiplies and adds of one sandwich in its bitwise order
+    (unrolled for ni <= 6, two contractions for ni = 8), none fused."""
+    if ni <= 6:
+        return no * no * (2 * ni * ni - 1)
+    return no * ni * (2 * ni - 1) + no * no * (2 * ni - 1)
+
+
 def epilogue_ops(n: int, m: int, changes_base: bool) -> int:
-    """fp32 multiplies and adds K4's epilogue does per (tile, channel):
-    the rq (or deq) scale of each position and the sandwiches in their
-    bitwise order (unrolled for n <= 6, two contractions for n = 8),
-    none fused."""
-    def sandwich(ni, no):
-        if ni <= 6:
-            return no * no * (2 * ni * ni - 1)
-        return no * ni * (2 * ni - 1) + no * no * (2 * ni - 1)
-    return n * n + (sandwich(n, n) if changes_base else 0) + sandwich(n, m)
+    """fp32 multiplies and adds of the output transform per (tile,
+    channel), K3's and K4's epilogue alike: the rq (or deq) scale of each
+    position and the sandwiches."""
+    return n * n + (sandwich_ops(n, n) if changes_base else 0) + \
+        sandwich_ops(n, m)
+
+
+def input_ops(n: int, changes_base: bool) -> int:
+    """fp32 multiplies and adds of K1's sandwiches per (tile, channel)."""
+    return sandwich_ops(n, n) * (2 if changes_base else 1)
 
 
 def main() -> int:
@@ -247,19 +296,31 @@ def main() -> int:
                 spills.append(f"{src}: {line.strip()}")
     if spills:
         fail(f"register spills: {spills}")
+    # Every kernel's SASS counts are logged before any gate can fail the
+    # run, so that this script, copied into an older checkout, still
+    # prints that checkout's counts.
     report["sass"] = {}
-    for src, kernel in (("fused_serve", "fused_kernel"),
+    for src, kernel in (("wino_transform", "input_transform_kernel"),
+                        ("wino_gemm", "wino_gemm_kernel"),
+                        ("fused_serve", "fused_kernel"),
                         ("q8_matmul", "q8_wgmma_kernel")):
         counts = {f: c for f, c in
                   sass_counts(str(_build._target(src))).items()
                   if kernel in f}
         report["sass"][src] = counts
         for f, c in counts.items():
-            log(f"  SASS {src} {f[-60:]}: {c['mma']} tensor-core MMA, "
-                f"{c['dp4a']} dp4a")
+            log(f"  SASS {src} {f[-60:]}: {c['registers']} registers, "
+                f"{c['instructions']} instructions, {c['mma']} tensor-core "
+                f"MMA, {c['dp4a']} dp4a, {c['lds']} LDS, {c['fmul']} FMUL, "
+                f"{c['lds'] / max(c['fmul'], 1):.3f} LDS per FMUL")
+    for src, counts in report["sass"].items():
+        if src == "wino_transform":
+            continue
         if not counts or any(c["mma"] == 0 for c in counts.values()):
-            fail(f"{src}: a {kernel} instantiation has no tensor-core MMA "
+            fail(f"{src}: an instantiation has no tensor-core MMA "
                  f"instruction in its SASS ({counts})")
+        if src == "wino_gemm" and any(c["dp4a"] for c in counts.values()):
+            fail(f"wino_gemm: an instantiation still uses dp4a ({counts})")
 
     # 3. kernels against their plain versions -------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -372,6 +433,63 @@ def main() -> int:
             fail(f"{label}: differs from its plain version by {d}")
         log(f"{label}: bit for bit with its plain version")
         del tiles, xq, y4, y4_p
+
+    # K1 and K2 at their edges
+    report["checks"]["k12_edges"] = {}
+    for m_, base, bits, T, cin, cout in K12_EDGES:
+        spec = WinogradSpec(m=m_, r=3, base=base)
+        o = ops._operands(spec, dev)
+        cb = spec.changes_base
+        tiles, in_s, uq, deq = inputs(spec, T, cin, cout)
+        xq = wt.input_transform(tiles, o["CinvT"], o["BPT"], in_s,
+                                changes_base=cb)
+        xq_p = wt.input_transform_plain(tiles, o["CinvT"], o["BPT"], in_s,
+                                        changes_base=cb)
+        rq = None
+        if bits is not None:
+            amax = (wg.wino_gemm_plain(xq, uq).float()
+                    * deq[:, :, None]).abs().amax(dim=(1, 2))
+            rq = ops._hadamard_rq(amax, bits)
+        h = wg.wino_gemm(xq, uq, requant_bits=bits, deq=deq, rq=rq)
+        h_p = wg.wino_gemm_plain(xq, uq, bits, deq, rq)
+        torch.cuda.synchronize()
+        label = (f"K1/K2 edge F({m_},3) {base} T={T} Cin={cin} Cout={cout} "
+                 f"requant {bits}, {wg.gemm_positions(spec.n ** 2, T, cout, cin)} "
+                 f"positions a K2 block")
+        d1 = int((xq.long() - xq_p.long()).abs().max())
+        d2 = int((h.long() - h_p.long()).abs().max())
+        report["checks"]["k12_edges"][label] = {"input_transform": d1,
+                                                "wino_gemm": d2}
+        errs["input_transform"] = max(errs["input_transform"], d1)
+        errs["wino_gemm"] = max(errs["wino_gemm"], d2)
+        if d1 or d2:
+            fail(f"{label}: K1 differs by {d1}, K2 by {d2}")
+        log(f"{label}: K1 and K2 bit for bit")
+        del tiles, xq, xq_p, h, h_p
+    for P, M, K, N in K2_SATURATED:
+        xs = torch.where(torch.rand((P, M, K), generator=gen, device=dev)
+                         < 0.01, -127, 127).to(torch.int8)
+        sign = torch.where(torch.arange(N, device=dev) % 2 == 1, -1, 1)
+        ws = (torch.where(torch.rand((P, K, N), generator=gen, device=dev)
+                          < 0.01, -127, 127) * sign).to(torch.int8)
+        dq = torch.rand((P, 1), generator=gen, device=dev) * 1e-6 + 1e-7
+        acc_p = wg.wino_gemm_plain(xs, ws)
+        amax = float(acc_p.abs().max())
+        rq = ops._hadamard_rq((acc_p.float() * dq[:, :, None]).abs()
+                              .amax(dim=(1, 2)), 9)
+        for bits in (None, 9):
+            a = wg.wino_gemm(xs, ws, requant_bits=bits, deq=dq, rq=rq)
+            b = wg.wino_gemm_plain(xs, ws, bits, dq, rq)
+            torch.cuda.synchronize()
+            label = (f"K2 saturated P={P} M={M} K={K} N={N} requant {bits}, "
+                     f"max |acc| {amax:.4g}")
+            d = int((a.long() - b.long()).abs().max())
+            report["checks"]["k12_edges"][label] = {"wino_gemm": d}
+            errs["wino_gemm"] = max(errs["wino_gemm"], d)
+            if not amax > 2 ** 24 or d:
+                fail(f"{label}: differs by {d} (|acc| must pass 2^24)")
+            log(f"{label}: bit for bit")
+        del xs, ws, acc_p
 
     def q8_inputs(M, K, N, saturated=False):
         if saturated:   # ±127, signs aligned: |acc| > 2^24, fp32 rounds
@@ -561,13 +679,31 @@ def main() -> int:
                 f"{max(b_ms, o_ms):.4f} ms ({'bytes' if b_ms >= o_ms else 'operations'}), "
                 f"plain {t_p:.3f} ms, library "
                 f"{'-' if t_l is None else f'{t_l:.4f} ms'}")
-        floor = T * cout * epilogue_ops(n, m, True) / FP32_INSTR_S * 1e3
-        rows["fused_gemm_output"]["epilogue_floor_ms"] = floor
-        per["fused_gemm_output"]["epilogue_floor_ms"] = \
-            per["fused_gemm_output"].get("epilogue_floor_ms", 0.0) + \
-            count * floor
-        log(f"time {lname:4s} K4 epilogue floor (bitwise sandwiches, "
-            f"{epilogue_ops(n, m, True)} fp32 ops per (t, c)): {floor:.4f} ms")
+        # floors: the bitwise-order fp32 operations at the fp32 issue rate
+        for k, key, nops_f in (
+                ("input_transform", "floor_ms", T * cin * input_ops(n, True)),
+                ("output_transform", "floor_ms",
+                 T * cout * epilogue_ops(n, m, True)),
+                ("fused_gemm_output", "epilogue_floor_ms",
+                 T * cout * epilogue_ops(n, m, True))):
+            f_ms = nops_f / FP32_INSTR_S * 1e3
+            rows[k][key] = f_ms
+            per[k][key] = per[k].get(key, 0.0) + count * f_ms
+            log(f"time {lname:4s} {k:17s} floor (bitwise sandwiches, "
+                f"{nops_f // (T * (cin if k == 'input_transform' else cout))}"
+                f" fp32 ops per (t, c)): {f_ms:.4f} ms")
+        # K2 under each count of positions a block takes (the wrapper's
+        # choice swapped)
+        by_pb = {}
+        for pb in wg.POSITIONS:
+            with mock.patch.object(wg, "gemm_positions", lambda *_: pb):
+                by_pb[pb] = time_ms(
+                    lambda: wg.wino_gemm(xq, uq, requant_bits=9, deq=deq,
+                                         rq=rq))
+        rows["wino_gemm"]["by_positions"] = by_pb
+        log(f"time {lname:4s} wino_gemm by positions a block (chosen "
+            f"{wg.gemm_positions(P, T, cout, cin)}): " + ", ".join(
+                f"{k}: {v:.4f} ms" for k, v in by_pb.items()))
         layer_times[lname] = rows
         del tiles, xq, acc, hq
     report["layer_times"] = layer_times
@@ -577,7 +713,8 @@ def main() -> int:
             f"{r['bound_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, library "
             f"{r['library_ms']:.4f} ms"
             + (f", epilogue floor {r['epilogue_floor_ms']:.4f} ms"
-               if "epilogue_floor_ms" in r else ""))
+               if "epilogue_floor_ms" in r else "")
+            + (f", floor {r['floor_ms']:.4f} ms" if "floor_ms" in r else ""))
 
     # K5 at the llama3.2-1b projection shapes, prefill and decode
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -746,8 +883,6 @@ def main() -> int:
             "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"]
             else "operations",
             "library_ms": r["library_ms"] if r["library_ms"] else None})
-        if "epilogue_floor_ms" in r:
-            kernels[-1]["epilogue_floor_ms"] = r["epilogue_floor_ms"]
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

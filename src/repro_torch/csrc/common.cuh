@@ -36,9 +36,33 @@ template <int NI, int NO>
 constexpr int kOperandFloats =
     NI <= kUnrollMaxN ? NO * NO * NI * NI : 2 * NO * NI;
 
+// cp.async of `bytes` (4 or 16) that reads `valid` bytes (all or 0) and
+// zero-fills the rest; commit closes a group, wait<Pending> returns once
+// at most Pending of this thread's groups are still in flight.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int Pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+}
+
 // Fill one sandwich operand in shared memory from the (NO x NI) row-major
-// matrices L and Rt in device memory. All threads of the block take part;
-// the caller synchronises afterwards.
+// matrices L and Rt in device memory, in the layout of repro::sandwich
+// (term[a][b][j][k] for NI <= 6). All threads of the block take part; the
+// caller synchronises afterwards.
 template <int NI, int NO>
 __device__ void load_operand(const float* __restrict__ L,
                              const float* __restrict__ Rt, float* sm) {
@@ -53,6 +77,24 @@ __device__ void load_operand(const float* __restrict__ L,
       sm[i] = L[i];
       sm[NO * NI + i] = Rt[i];
     }
+  }
+}
+
+// The same operand in the layout of sandwich_jk: for NI <= 6 the table
+// term[j][k][a][b] = L[a][j] * Rt[b][k] (the kernels' wrappers make the
+// same table with torch for K4: fused_serve._terms); for NI > 6 L and Rt
+// as they are.
+template <int NI, int NO>
+__device__ void load_terms(const float* __restrict__ L,
+                           const float* __restrict__ Rt, float* sm) {
+  if constexpr (NI <= kUnrollMaxN) {
+    for (int i = threadIdx.x; i < NO * NO * NI * NI; i += blockDim.x) {
+      const int b = i % NO, a = (i / NO) % NO;
+      const int k = (i / (NO * NO)) % NI, j = i / (NO * NO * NI);
+      sm[i] = __fmul_rn(L[a * NI + j], Rt[b * NI + k]);
+    }
+  } else {
+    load_operand<NI, NO>(L, Rt, sm);
   }
 }
 
@@ -106,6 +148,75 @@ __device__ __forceinline__ void sandwich(const float* __restrict__ sm,
       }
     }
   }
+}
+
+// out[w][a][b] = sum_{j,k} x[w][j][k] * term[j][k][a][b] for W NI x NI
+// windows, from the [j][k][a][b] table of load_terms. Each output's sum
+// runs j outer and k inner (repro::sandwich's unrolled order, so the
+// result is the same bit for bit), G outputs at a time: for each group of
+// G outputs, (j, k) runs outside and the W x G sums inside, so one
+// 16-byte table load feeds 4 * W products and only W * G sums are live.
+// emit(g, acc) takes group g's sums, acc[w][e] for output g * G + e of
+// window w, as soon as they are complete. The loop over groups stays
+// rolled: unrolled, one sandwich at n = 6 is ~8,000 instructions, and a
+// kernel of two no longer fits the SM's instruction cache.
+template <int NI, int NO, int W, int G, class Emit>
+__device__ __forceinline__ void sandwich_terms_grouped(
+    const float* __restrict__ sm, const float (&x)[W][NI * NI],
+    Emit&& emit) {
+  static_assert(G % 4 == 0 && (NO * NO) % G == 0, "16-byte groups");
+#pragma unroll 1
+  for (int g = 0; g < NO * NO / G; ++g) {
+    float acc[W][G];
+#pragma unroll
+    for (int jk = 0; jk < NI * NI; ++jk) {
+      const float4* term =
+          reinterpret_cast<const float4*>(sm + jk * NO * NO + g * G);
+#pragma unroll
+      for (int c4 = 0; c4 < G / 4; ++c4) {
+        const float4 tv = term[c4];
+        const float tab[4] = {tv.x, tv.y, tv.z, tv.w};
+#pragma unroll
+        for (int w = 0; w < W; ++w)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * c4 + e;
+            acc[w][i] = jk == 0
+                            ? __fmul_rn(x[w][0], tab[e])
+                            : __fadd_rn(acc[w][i], __fmul_rn(x[w][jk], tab[e]));
+          }
+      }
+    }
+    emit(g, acc);
+  }
+}
+
+// out[a][b] = sum_{j,k} x[j][k] * term[j][k][a][b] over one NI x NI
+// window, all NO^2 outputs in one group: NO^2 independent add chains in
+// flight, and each 16-byte load of the table feeds four products.
+template <int NI, int NO>
+__device__ __forceinline__ void sandwich_terms(const float* __restrict__ sm,
+                                               const float (&x)[NI * NI],
+                                               float (&out)[NO * NO]) {
+  sandwich_terms_grouped<NI, NO, 1, NO * NO>(
+      sm, reinterpret_cast<const float(&)[1][NI * NI]>(x),
+      [&](int, const float(&acc)[1][NO * NO]) {
+#pragma unroll
+        for (int ab = 0; ab < NO * NO; ++ab) out[ab] = acc[0][ab];
+      });
+}
+
+// One sandwich from an operand that load_terms (or the wrapper) laid out:
+// the table form for NI <= 6, the two contractions of repro::sandwich (L
+// and Rt as they are) for NI = 8. The same values as repro::sandwich.
+template <int NI, int NO>
+__device__ __forceinline__ void sandwich_jk(const float* __restrict__ sm,
+                                            const float (&x)[NI * NI],
+                                            float (&out)[NO * NO]) {
+  if constexpr (NI <= kUnrollMaxN)
+    sandwich_terms<NI, NO>(sm, x, out);
+  else
+    sandwich<NI, NO>(sm, x, out);
 }
 
 // clip(rint(v / s), -qm, qm) -- the symmetric quantizer of the input

@@ -29,16 +29,10 @@
 //   stash would not fit shared memory, and the tensor rate is not what
 //   bounds this kernel. Registers are capped at 128 a thread, so 16
 //   warps share an SM and one block's staging overlaps another's math.
-// * Staging is a 4-stage ring with one barrier per slab, three slabs in
-//   flight: the Xq slab (K-major already) lands through 16-byte
-//   cp.async; the u_q slab is N-major, and mma wants B K-major, so each
-//   thread cp.asyncs its own 4 x 4 byte blocks (4 rows x 4 channels),
-//   and once they are in, turns them with __byte_perm transposes into a
-//   double-buffered K-major slab. Rows that are not 16-byte aligned (the
-//   stem's Cin = 3, ragged Cin) are read byte by byte into registers one
-//   slab ahead; ragged T, Cin and Cout edges are zero-filled, exact in
-//   integers. Shared rows are padded to 80 bytes, so fragment loads hit
-//   32 banks.
+// * The GEMM phase is the mainloop of int8_mma.cuh, which K2 shares:
+//   a 4-stage cp.async ring of 64-deep slabs, u_q turned K-major in
+//   shared memory with __byte_perm 4 x 4 transposes, a byte path for
+//   unaligned rows (the stem's Cin = 3) and zero-filled ragged edges.
 // * A finished position is requantized in registers (common.cuh's
 //   requant) and parked in a shared stash: as int16 grid values with the
 //   Hadamard stage on (|q| <= 255), as f32 acc * deq[p] with it off. The
@@ -56,119 +50,23 @@
 //   load feeds four products. It writes the m x m outputs with 16-byte
 //   stores.
 
-#include "common.cuh"
+#include "int8_mma.cuh"
 
 namespace {
 
-constexpr int kBK = 64;          // k bytes per slab
-constexpr int kRow = kBK + 16;   // padded shared row, bytes
-constexpr int kStages = 4;       // slabs in flight
-
-__host__ __device__ constexpr int round16(int b) { return (b + 15) / 16 * 16; }
-
-// Shared memory layout: term tables, deq, rq | sA[kStages][BT] Xq slabs |
-// sU[kStages] raw u_q words, each thread its own | sB[2][BC] K-major u_q
-// slabs | stash[P][BT][BC] (int16 with the requant on, f32 with it off).
+// Shared memory layout: term tables, deq, rq | the mainloop's staging
+// (int8_mma.cuh) | stash[P][BT][BC] (int16 with the requant on, f32 with
+// it off).
 template <int N, int M>
 __host__ __device__ constexpr int table_bytes() {
-  return round16(4 * (repro::kOperandFloats<N, N> +
-                      repro::kOperandFloats<N, M> + 2 * N * N));
-}
-
-// 4 x 4 byte blocks of one u_q slab per thread of NT.
-template <int BC, int NT>
-__host__ __device__ constexpr int u_blocks() {
-  return ((kBK / 4) * (BC / 4) + NT - 1) / NT;
+  return repro::round16(4 * (repro::kOperandFloats<N, N> +
+                             repro::kOperandFloats<N, M> + 2 * N * N));
 }
 
 template <int N, int M, int BT, int BC, int NT>
 __host__ __device__ constexpr int smem_bytes(bool requant) {
-  return table_bytes<N, M>() + kStages * BT * kRow +
-         kStages * u_blocks<BC, NT>() * NT * 16 + 2 * BC * kRow +
+  return table_bytes<N, M>() + repro::mainloop_bytes<BT, BC, NT>() +
          N * N * BT * BC * (requant ? 2 : 4);
-}
-
-// cp.async of `bytes` (4 or 16) that reads `valid` bytes (all or 0) and
-// zero-fills the rest.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int Pending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
-}
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// r[i] holds bytes (row i, columns 0..3); on return r[j] holds bytes
-// (rows 0..3, column j).
-__device__ __forceinline__ void transpose4x4(uint32_t (&r)[4]) {
-  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);
-  const uint32_t t1 = __byte_perm(r[0], r[1], 0x7362);
-  const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140);
-  const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
-  r[0] = __byte_perm(t0, t2, 0x5410);
-  r[1] = __byte_perm(t0, t2, 0x7632);
-  r[2] = __byte_perm(t1, t3, 0x5410);
-  r[3] = __byte_perm(t1, t3, 0x7632);
-}
-
-// out[a][b] = sum_{j,k} x[j][k] * term[j][k][a][b] over one NI x NI
-// window. Each output's sum runs j outer and k inner (repro::sandwich's
-// unrolled order, so the result is the same bit for bit), but the loop
-// nest puts (j, k) outside and the NO^2 outputs inside: NO^2 independent
-// add chains in flight, and each 16-byte load of the [j][k][a][b] table
-// feeds four products.
-template <int NI, int NO>
-__device__ __forceinline__ void sandwich_terms(const float* __restrict__ sm,
-                                               const float (&x)[NI * NI],
-                                               float (&out)[NO * NO]) {
-#pragma unroll
-  for (int jk = 0; jk < NI * NI; ++jk) {
-    const float4* term = reinterpret_cast<const float4*>(sm + jk * NO * NO);
-#pragma unroll
-    for (int c4 = 0; c4 < NO * NO / 4; ++c4) {
-      const float4 tv = term[c4];
-      const float tab[4] = {tv.x, tv.y, tv.z, tv.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ab = 4 * c4 + e;
-        out[ab] = jk == 0 ? __fmul_rn(x[0], tab[e])
-                          : __fadd_rn(out[ab], __fmul_rn(x[jk], tab[e]));
-      }
-    }
-  }
-}
-
-// One sandwich: the table form for NI <= 6, the two contractions of
-// repro::sandwich (L and Rt as they are) for NI = 8.
-template <int NI, int NO>
-__device__ __forceinline__ void sandwich_k4(const float* __restrict__ sm,
-                                            const float (&x)[NI * NI],
-                                            float (&out)[NO * NO]) {
-  if constexpr (NI <= repro::kUnrollMaxN)
-    sandwich_terms<NI, NO>(sm, x, out);
-  else
-    repro::sandwich<NI, NO>(sm, x, out);
 }
 
 // WGT warps along the tiles, WGC along the channels; 16 warps an SM
@@ -184,16 +82,11 @@ fused_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ uq,
              float* __restrict__ out, int T, int K, int Cout, int qm,
              int changes_base) {
   constexpr int P = N * N;
-  constexpr int WT = BT / WGT, WC = BC / WGC;
-  constexpr int FM = WT / 16, FN = WC / 8;
-  static_assert(FM >= 1 && FN >= 1, "warp tiling");
+  using W = repro::WarpTiling<BT, BC, WGT, WGC>;
+  constexpr int WT = W::WT, WC = W::WC, FM = W::FM, FN = W::FN;
   constexpr int FB = repro::kOperandFloats<N, N>;
   constexpr int FA = repro::kOperandFloats<N, M>;
   static_assert(FB % 4 == 0 && FA % 4 == 0, "16-byte table copies");
-  constexpr int UB = (kBK / 4) * (BC / 4);   // 4 x 4 blocks of a u slab
-  constexpr int UPT = u_blocks<BC, NT>();
-  constexpr int XC = BT * (kBK / 16);        // 16-byte chunks of an Xq slab
-  constexpr int XPT = (XC + NT - 1) / NT;
   constexpr int TILE = BT * BC;
   static_assert(TILE % NT == 0, "epilogue split");
 
@@ -202,10 +95,8 @@ fused_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ uq,
   float* s_ta = s_tb + FB;
   float* s_deq = s_ta + FA;
   float* s_rq = s_deq + P;
-  int8_t* sA = reinterpret_cast<int8_t*>(smem + table_bytes<N, M>());
-  uint32_t* sU = reinterpret_cast<uint32_t*>(sA + kStages * BT * kRow);
-  int8_t* sB = reinterpret_cast<int8_t*>(sU + kStages * UPT * NT * 4);
-  unsigned char* stash = reinterpret_cast<unsigned char*>(sB + 2 * BC * kRow);
+  unsigned char* staging = smem + table_bytes<N, M>();
+  unsigned char* stash = staging + repro::mainloop_bytes<BT, BC, NT>();
   int16_t* stash_q = reinterpret_cast<int16_t*>(stash);
   float* stash_f = reinterpret_cast<float*>(stash);
 
@@ -225,209 +116,28 @@ fused_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ uq,
     s_rq[i] = rq[i];
   }
 
-  const int nk = (K + kBK - 1) / kBK;
-  const int S = P * nk;
-  const bool x_vec = (K % 16) == 0;
-  const bool u_vec = (Cout % 4) == 0;
-
-  // Slab s goes to ring slot s % kStages. Xq rows and u_q words that are
-  // aligned go by cp.async (zero-filled past the edges); unaligned Xq rows
-  // are read byte by byte into registers and deposited at the end of the
-  // next iteration (deposit_x), so their latency hides behind the product
-  // too.
-  // Each thread copies its own 4 x 4 u_q blocks, so after its own
-  // wait_group it can transpose them with no barrier (turn_u).
-  uint32_t xr0[XPT][4], xr1[XPT][4];   // unaligned Xq bytes, slabs in turn
-  // the next slab to issue: its k0 and its position's planes
-  int ik0 = 0;
-  const int8_t* ixp = xq;
-  const int8_t* iup = uq;
-  auto issue = [&](int s, uint32_t(&xr)[XPT][4]) {
-    const int slot = s % kStages;
-    const int k0 = ik0;
-    const int8_t* xp = ixp;
-    const int8_t* up = iup;
-    ik0 += kBK;
-    if (ik0 >= K) {
-      ik0 = 0;
-      ixp += static_cast<long long>(T) * K;
-      iup += static_cast<long long>(K) * Cout;
-    }
+  // the GEMM phase; a finished position is requantized and stashed
+  repro::gemm_slabs<BT, BC, WGT, WGC>(
+      staging, xq, uq, T, K, Cout, P, t0, c0,
+      [&](int p, const int(&acc)[FM][FN][4]) {
+        const float dq = s_deq[p], r = s_rq[p];
 #pragma unroll
-    for (int v = 0; v < XPT; ++v) {
-      const int i = tid + v * NT;
-      if (i >= XC) break;
-      const int r = i / (kBK / 16), kc = (i % (kBK / 16)) * 16;
-      const int t = t0 + r, k = k0 + kc;
-      const bool in = t < T && k < K;
-      const int8_t* src = in ? xp + static_cast<long long>(t) * K + k : xq;
-      if (x_vec) {
-        cp_async16(sA + (slot * BT + r) * kRow + kc, src, in);
-      } else {
+        for (int fm = 0; fm < FM; ++fm)
 #pragma unroll
-        for (int w = 0; w < 4; ++w) {
-          uint32_t word = 0;
+          for (int fn = 0; fn < FN; ++fn)
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (in && k + 4 * w + j < K)
-              word |= static_cast<uint32_t>(
-                          static_cast<uint8_t>(src[4 * w + j]))
-                      << (8 * j);
-          xr[v][w] = word;
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < UPT; ++u) {
-      const int i = tid + u * NT;
-      if (i >= UB) break;
-      const int kg = i / (BC / 4), cw = i % (BC / 4);
-      const int c = c0 + cw * 4;
-      uint32_t* dst = sU + ((slot * UPT + u) * NT + tid) * 4;
-      const int8_t* row = up + static_cast<long long>(k0 + kg * 4) * Cout + c;
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int k = k0 + kg * 4 + r;
-        const bool in = k < K && c < Cout;
-        const int8_t* src = in ? row + r * Cout : uq;
-        if (u_vec) {
-          cp_async4(dst + r, src, in);
-        } else {
-          uint32_t v = 0;
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (in && c + j < Cout)
-              v |= static_cast<uint32_t>(static_cast<uint8_t>(src[j]))
-                   << (8 * j);
-          dst[r] = v;
-        }
-      }
-    }
-  };
-  auto deposit_x = [&](int s, const uint32_t(&xr)[XPT][4]) {
-    if (x_vec) return;
-    const int slot = s % kStages;
-#pragma unroll
-    for (int v = 0; v < XPT; ++v) {
-      const int i = tid + v * NT;
-      if (i >= XC) break;
-      const int r = i / (kBK / 16), kc = (i % (kBK / 16)) * 16;
-      *reinterpret_cast<uint4*>(sA + (slot * BT + r) * kRow + kc) =
-          make_uint4(xr[v][0], xr[v][1], xr[v][2], xr[v][3]);
-    }
-  };
-  auto turn_u = [&](int s, int buf) {
-    const int slot = s % kStages;
-#pragma unroll
-    for (int u = 0; u < UPT; ++u) {
-      const int i = tid + u * NT;
-      if (i >= UB) break;
-      const int kg = i / (BC / 4), cw = i % (BC / 4);
-      const uint4 w4 = *reinterpret_cast<const uint4*>(
-          sU + ((slot * UPT + u) * NT + tid) * 4);
-      uint32_t r[4] = {w4.x, w4.y, w4.z, w4.w};
-      transpose4x4(r);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        *reinterpret_cast<uint32_t*>(sB + (buf * BC + cw * 4 + j) * kRow +
-                                     kg * 4) = r[j];
-    }
-  };
-
-  int acc[FM][FN][4];
-#pragma unroll
-  for (int fm = 0; fm < FM; ++fm)
-#pragma unroll
-    for (int fn = 0; fn < FN; ++fn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[fm][fn][e] = 0;
-
-  // slab s's unaligned Xq bytes are read into xr0 (s even) or xr1 (s odd)
-  // and deposited two iterations later
-  static_assert(kStages == 4, "the xr0 / xr1 turns assume 4 stages");
-  if (S > 0) {
-    issue(0, xr0);
-    deposit_x(0, xr0);
-  }
-  cp_async_commit();
-  if (S > 1) {
-    issue(1, xr1);
-    deposit_x(1, xr1);
-  }
-  cp_async_commit();
-  if (S > 2) issue(2, xr0);
-  cp_async_commit();
-  cp_async_wait<kStages - 2>();     // slab 0 is in (this thread's copies)
-  turn_u(0, 0);
-  __syncthreads();
-
-  for (int s = 0, p = 0, k0 = 0; s < S; ++s) {   // slab s = (p, k0)
-    const int buf = s & 1;
-    const int slot = s % kStages;
-    const bool ahead = s + kStages - 1 < S;
-    if (ahead) {                       // into the slot slab s-1 freed
-      if (s & 1) issue(s + 3, xr0);
-      else issue(s + 3, xr1);
-    }
-    cp_async_commit();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 32) {
-      if (k0 + kk >= K) break;
-      uint32_t a[FM][4], b[FN][2];
-#pragma unroll
-      for (int fm = 0; fm < FM; ++fm) {
-        const int8_t* base = sA + (slot * BT + wt * WT + fm * 16 + lane / 4) *
-                                      kRow + kk + (lane % 4) * 4;
-        a[fm][0] = *reinterpret_cast<const uint32_t*>(base);
-        a[fm][1] = *reinterpret_cast<const uint32_t*>(base + 8 * kRow);
-        a[fm][2] = *reinterpret_cast<const uint32_t*>(base + 16);
-        a[fm][3] = *reinterpret_cast<const uint32_t*>(base + 8 * kRow + 16);
-      }
-#pragma unroll
-      for (int fn = 0; fn < FN; ++fn) {
-        const int8_t* base = sB + (buf * BC + wc * WC + fn * 8 + lane / 4) *
-                                      kRow + kk + (lane % 4) * 4;
-        b[fn][0] = *reinterpret_cast<const uint32_t*>(base);
-        b[fn][1] = *reinterpret_cast<const uint32_t*>(base + 16);
-      }
-#pragma unroll
-      for (int fm = 0; fm < FM; ++fm)
-#pragma unroll
-        for (int fn = 0; fn < FN; ++fn) mma_s8(acc[fm][fn], a[fm], b[fn]);
-    }
-    if (k0 + kBK >= K) {  // position p is complete: requant, stash
-      const float dq = s_deq[p], r = s_rq[p];
-#pragma unroll
-      for (int fm = 0; fm < FM; ++fm)
-#pragma unroll
-        for (int fn = 0; fn < FN; ++fn)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int row = wt * WT + fm * 16 + lane / 4 + 8 * (e / 2);
-            const int col = wc * WC + fn * 8 + (lane % 4) * 2 + e % 2;
-            const int idx = (p * BT + row) * BC + col;
-            if (qm > 0)
-              stash_q[idx] = static_cast<int16_t>(
-                  repro::requant(acc[fm][fn][e], dq, r, fqm));
-            else
-              stash_f[idx] = __fmul_rn(static_cast<float>(acc[fm][fn][e]),
-                                       dq);
-            acc[fm][fn][e] = 0;
-          }
-    }
-    if (s + 2 < S) {                   // issued one iteration ago
-      if (s & 1) deposit_x(s + 2, xr1);
-      else deposit_x(s + 2, xr0);
-    }
-    cp_async_wait<kStages - 2>();     // slab s + 1 is in
-    if (s + 1 < S) turn_u(s + 1, buf ^ 1);
-    __syncthreads();
-    k0 += kBK;
-    if (k0 >= K) {
-      k0 = 0;
-      ++p;
-    }
-  }
+            for (int e = 0; e < 4; ++e) {
+              const int row = wt * WT + fm * 16 + lane / 4 + 8 * (e / 2);
+              const int col = wc * WC + fn * 8 + (lane % 4) * 2 + e % 2;
+              const int idx = (p * BT + row) * BC + col;
+              if (qm > 0)
+                stash_q[idx] = static_cast<int16_t>(
+                    repro::requant(acc[fm][fn][e], dq, r, fqm));
+              else
+                stash_f[idx] = __fmul_rn(
+                    static_cast<float>(acc[fm][fn][e]), dq);
+            }
+      });
 
   for (int i = tid; i < TILE; i += NT) {
     float h[P];
@@ -439,10 +149,10 @@ fused_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ uq,
     float y[M * M];
     if (changes_base) {
       float z[P];
-      sandwich_k4<N, N>(s_tb, h, z);
-      sandwich_k4<N, M>(s_ta, z, y);
+      repro::sandwich_jk<N, N>(s_tb, h, z);
+      repro::sandwich_jk<N, M>(s_ta, z, y);
     } else {
-      sandwich_k4<N, M>(s_ta, h, y);
+      repro::sandwich_jk<N, M>(s_ta, h, y);
     }
     const int t = t0 + i / BC, c = c0 + i % BC;
     if (t >= T || c >= Cout) continue;

@@ -7,109 +7,150 @@
 // int32 accumulation; with the epilogue, each accumulator becomes
 // clip(rint(f32(acc) * deq[p] / rq[p]), +-qm), stored as int32 on that grid.
 //
-// What bounds it on an H100: at the serving path's shapes (K, N <= 512,
-// M = tiles) the int8 work per byte moved is low -- the int32 output alone
-// is 4*P*M*N bytes against 2*P*M*N*K operations -- so memory bounds it at
-// the card's int8 tensor rate; this kernel, which uses no tensor cores, is
-// bound by its own integer issue rate instead.
+// What bounds it on an H100: memory. At the serving path's shapes (K, N
+// <= 512, M = tiles) the int32 output alone is 4*P*M*N bytes, about 80 %
+// of what the kernel must move, against 2*P*M*N*K int8 operations: a few
+// microseconds at the tensor cores' rate, tens of microseconds of bytes.
 //
-// Design: a plain shared-memory tiled GEMM. Grid (N/64, M/64, P); each
-// block stages a 64 x 32 slab of x and a 32 x 64 slab of w (transposed, so
-// four consecutive k of one column form one 32-bit word) per K step, and
-// each of its 256 threads accumulates a 4 x 4 register tile with __dp4a
-// (four int8 products summed into int32, exact). The requant epilogue runs
-// on the accumulators after the last K step, with the same IEEE operations
-// as requant_plane. Zero padding of ragged edges is exact in integers.
-// Tensor cores (wgmma s8) and TMA are later work.
+// Design:
+// * A block owns a 128 x 64 tile of (rows, columns) at PB consecutive
+//   positions, 8 warps, and runs the int8 tensor-core mainloop it shares
+//   with K4 (int8_mma.cuh: mma.sync m16n8k32 s8, a 4-stage cp.async ring
+//   of 64-deep slabs, u_q turned K-major with __byte_perm transposes, a
+//   byte path for unaligned rows such as the stem's Cin = 3, zero-filled
+//   ragged edges) over the 1 to 8 slabs of K of each position in turn.
+//   The ring runs on across positions, so the next position's slabs land
+//   while this one's rows are stored: at Cin <= 64 (one slab a
+//   position) a block of one position would wait out a whole load before
+//   its only product.
+// * The grid puts the column tiles of one row tile next to each other,
+//   so blocks that run together share their x rows in L2; the groups of
+//   positions are the grid's y. The host picks PB per shape: up to four
+//   slabs a block, as long as the grid fills the card
+//   (kernels/wino_gemm.py:gemm_positions). A 64 x 64 tile was slower at
+//   every main-path shape.
+// * The epilogue runs in registers: the requant (common.cuh's requant,
+//   the IEEE operations of requant_plane), then one shuffle between lane
+//   pairs turns each thread's two 8-byte fragment rows into one 16-byte
+//   row piece, stored whole, so each store instruction fills whole
+//   32-byte sectors. Several blocks share an SM, so one block's stores
+//   overlap another's loads.
 
-#include "common.cuh"
+#include "int8_mma.cuh"
 
 namespace {
 
-constexpr int kBM = 64, kBN = 64, kBK = 32;
-constexpr int kThreads = 256;
-constexpr int kWords = kBK / 4;           // 32-bit words per k slab row
-constexpr int kPad = kWords + 1;          // odd row stride: no bank conflicts
-
-__global__ void __launch_bounds__(kThreads)
+template <int BT, int BC, int WGT, int WGC,
+          int NT = repro::WarpTiling<BT, BC, WGT, WGC>::NT>
+__global__ void __launch_bounds__(NT, 2)
 wino_gemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                 int32_t* __restrict__ out, int M, int N, int K,
+                 int32_t* __restrict__ out, int P, int M, int N, int K,
                  const float* __restrict__ deq, const float* __restrict__ rq,
-                 int qm) {
-  __shared__ int32_t sa[kBM][kPad];       // x slab, k-contiguous
-  __shared__ int32_t sb[kBN][kPad];       // w slab, transposed
-  const int p = blockIdx.z;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int tid = threadIdx.x;
-  const int tm = tid / 16, tn = tid % 16;  // 16 x 16 threads, 4 x 4 each
-  const int8_t* xp = x + static_cast<long long>(p) * M * K;
-  const int8_t* wp = w + static_cast<long long>(p) * K * N;
+                 int qm, int pb) {
+  using W = repro::WarpTiling<BT, BC, WGT, WGC>;
+  constexpr int WT = W::WT, WC = W::WC, FM = W::FM, FN = W::FN;
+  extern __shared__ __align__(16) unsigned char smem[];
 
-  int acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    {  // x slab: row tid / 4, 8 consecutive k
-      const int r = tid / 4, kc = (tid % 4) * 8;
-      int8_t* dst = reinterpret_cast<int8_t*>(&sa[r][0]) + kc;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int m = m0 + r, k = k0 + kc + i;
-        dst[i] = (m < M && k < K) ? xp[static_cast<long long>(m) * K + k] : 0;
-      }
-    }
-    {  // w slab: k row tid / 8, 8 consecutive n, stored transposed
-      const int kr = tid / 8, nc = (tid % 8) * 8;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int k = k0 + kr, nn = n0 + nc + i;
-        reinterpret_cast<int8_t*>(&sb[nc + i][0])[kr] =
-            (k < K && nn < N) ? wp[static_cast<long long>(k) * N + nn] : 0;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kw = 0; kw < kWords; ++kw) {
-      int a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sa[tm * 4 + i][kw];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = sb[tn * 4 + j][kw];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
+  const int p0 = blockIdx.y * pb;
+  const int np = P - p0 < pb ? P - p0 : pb;
+  const int col_tiles = (N + BC - 1) / BC;
+  const int t0 = static_cast<int>(blockIdx.x / col_tiles) * BT;
+  const int c0 = static_cast<int>(blockIdx.x % col_tiles) * BC;
+  const int8_t* xp = x + static_cast<long long>(p0) * M * K;
+  const int8_t* wp = w + static_cast<long long>(p0) * K * N;
 
-  int32_t* op = out + static_cast<long long>(p) * M * N;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wt = warp / WGC, wc = warp % WGC;
   const float fqm = static_cast<float>(qm);
+  const bool o_vec = (N % 4) == 0;
+  // lane q = lane % 4 holds columns 2q, 2q+1 of rows lane/4 and lane/4 + 8;
+  // after the swap with lane q ^ 1, even q holds 4 columns of the first
+  // row, odd q 4 columns of the second
+  const int q = lane % 4;
+  const bool even = (q & 1) == 0;
+  const int row_in = lane / 4 + (even ? 0 : 8);
+  const int col_in = (q & 2) * 2;
+
+  repro::gemm_slabs<BT, BC, WGT, WGC>(
+      smem, xp, wp, M, K, N, np, t0, c0,
+      [&](int p, const int(&acc)[FM][FN][4]) {
+        int32_t* op = out + static_cast<long long>(p0 + p) * M * N;
+        const float dq = qm > 0 ? deq[p0 + p] : 0.f;
+        const float r = qm > 0 ? rq[p0 + p] : 1.f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + tm * 4 + i;
-    if (m >= M) continue;
+        for (int fm = 0; fm < FM; ++fm) {
+          const int row = t0 + wt * WT + fm * 16 + row_in;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int nn = n0 + tn * 4 + j;
-      if (nn >= N) continue;
-      int32_t v = acc[i][j];
-      if (qm > 0)
-        v = static_cast<int32_t>(repro::requant(v, deq[p], rq[p], fqm));
-      op[static_cast<long long>(m) * N + nn] = v;
-    }
+          for (int fn = 0; fn < FN; ++fn) {
+            int v[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              v[e] = qm > 0 ? static_cast<int>(repro::requant(
+                                  acc[fm][fn][e], dq, r, fqm))
+                            : acc[fm][fn][e];
+            const int s0 = __shfl_xor_sync(0xffffffffu, even ? v[2] : v[0], 1);
+            const int s1 = __shfl_xor_sync(0xffffffffu, even ? v[3] : v[1], 1);
+            const int4 o = even ? make_int4(v[0], v[1], s0, s1)
+                                : make_int4(s0, s1, v[2], v[3]);
+            const int col = c0 + wc * WC + fn * 8 + col_in;
+            if (row >= M || col >= N) continue;
+            int32_t* dst = op + static_cast<long long>(row) * N + col;
+            if (o_vec) {          // N % 4 == 0: col + 4 <= N, 16-byte aligned
+              *reinterpret_cast<int4*>(dst) = o;
+            } else {
+              dst[0] = o.x;
+              if (col + 1 < N) dst[1] = o.y;
+              if (col + 2 < N) dst[2] = o.z;
+              if (col + 3 < N) dst[3] = o.w;
+            }
+          }
+        }
+      });
+}
+
+template <int BT, int BC, int WGT, int WGC>
+int launch(const int8_t* x, const int8_t* w, int32_t* out, int P, int M,
+           int N, int K, const float* deq, const float* rq, int qm, int pb,
+           cudaStream_t stream) {
+  constexpr int NT = repro::WarpTiling<BT, BC, WGT, WGC>::NT;
+  constexpr int smem = repro::mainloop_bytes<BT, BC, NT>();
+  // set once per device (a host call that costs about a small launch)
+  static bool smem_set[repro::kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || dev >= repro::kMaxDevices)
+    return static_cast<int>(e != cudaSuccess ? e : cudaErrorInvalidDevice);
+  if (!smem_set[dev]) {
+    e = cudaFuncSetAttribute(wino_gemm_kernel<BT, BC, WGT, WGC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set[dev] = true;
   }
+  const long long blocks =
+      static_cast<long long>((M + BT - 1) / BT) * ((N + BC - 1) / BC);
+  const int groups = (P + pb - 1) / pb;
+  if (blocks > 0x7fffffffLL || groups > 65535)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const dim3 grid(static_cast<unsigned>(blocks), groups);
+  wino_gemm_kernel<BT, BC, WGT, WGC><<<grid, NT, smem, stream>>>(
+      x, w, out, P, M, N, K, deq, rq, qm, pb);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x (P, M, K) int8, w (P, K, N) int8 -> out (P, M, N) int32. With qm > 0
-// the requant epilogue runs with deq/rq (P) f32 (may be null otherwise).
-// Returns cudaGetLastError().
+// x (P, M, K) int8, w (P, K, N) int8 -> out (P, M, N) int32, K >= 1. With
+// qm > 0 the requant epilogue runs with deq/rq (P) f32 (may be null
+// otherwise). pb is the positions a block takes in turn. Returns
+// cudaGetLastError().
 extern "C" int wino_gemm(const int8_t* x, const int8_t* w, int32_t* out,
                          int P, int M, int N, int K, const float* deq,
-                         const float* rq, int qm, cudaStream_t stream) {
+                         const float* rq, int qm, int pb,
+                         cudaStream_t stream) {
   if (P == 0 || M == 0 || N == 0) return static_cast<int>(cudaGetLastError());
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, P);
-  wino_gemm_kernel<<<grid, kThreads, 0, stream>>>(x, w, out, M, N, K, deq,
-                                                   rq, qm);
-  return static_cast<int>(cudaGetLastError());
+  if (K < 1 || qm < 0 || pb < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch<128, 64, 4, 2>(x, w, out, P, M, N, K, deq, rq, qm, pb,
+                               stream);
 }

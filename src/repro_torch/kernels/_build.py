@@ -23,10 +23,13 @@ import torch
 
 __all__ = ["LAUNCHES", "BUILD_LOG", "reset_launches", "nvcc_path", "load",
            "build_all", "launch", "require", "stream", "cuda_device",
-           "NVCC_FLAGS", "SOURCES", "BUILD_DIR"]
+           "NVCC_FLAGS", "SOURCES", "BUILD_DIR", "SMS"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+#: Streaming multiprocessors of one H100 SXM, which the wrappers' launch
+#: choices fill.
+SMS = 132
 
 #: One shared library per source; the kernels each one holds.
 SOURCES = {

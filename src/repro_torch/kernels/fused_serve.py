@@ -22,8 +22,9 @@ import torch
 
 from repro_torch.core.quantization import qmax
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import SMS
 from repro_torch.kernels.ref import wino_gemm_ref
-from repro_torch.kernels.wino_gemm import requant_plane
+from repro_torch.kernels.wino_gemm import mainloop_smem_bytes, requant_plane
 from repro_torch.kernels.wino_transform import _N_SUPPORTED, _side, sandwich
 
 __all__ = ["fused_gemm_output", "fused_gemm_output_plain",
@@ -40,10 +41,7 @@ THREADS = {(32, 32): 256, (16, 32): 128}
 #: another's epilogue).
 SMEM_LIMIT = 232448
 STASH_BUDGET = 96 * 1024
-SMS = 132
 _UNROLL_MAX_N = 6       # common.cuh kUnrollMaxN
-_ROW = 64 + 16          # fused_serve.cu kRow
-_STAGES = 4             # fused_serve.cu kStages
 
 
 def _operand_floats(ni: int, no: int) -> int:
@@ -52,15 +50,14 @@ def _operand_floats(ni: int, no: int) -> int:
 
 def fused_smem_bytes(n: int, bt: int, bc: int, requant: bool) -> int:
     """Dynamic shared memory of one K4 block (``fused_serve.cu``
-    smem_bytes): term tables, deq and rq, the ring of Xq slabs and of raw
-    u_q blocks, two K-major u_q slabs, and the stash of all n² positions
-    (int16 grid values with the requant on, fp32 with it off)."""
+    smem_bytes): term tables, deq and rq, the int8 mainloop's staging
+    (the ring of Xq slabs and of raw u_q blocks, two K-major u_q slabs),
+    and the stash of all n² positions (int16 grid values with the requant
+    on, fp32 with it off)."""
     m = n - 2
     tables = 4 * (_operand_floats(n, n) + _operand_floats(n, m) + 2 * n * n)
     tables = -(-tables // 16) * 16
-    nt = THREADS[(bt, bc)]
-    u_raw = -(-4 * bc // nt) * nt * 16   # each thread's raw u_q blocks
-    return (tables + _STAGES * (bt * _ROW + u_raw) + 2 * bc * _ROW
+    return (tables + mainloop_smem_bytes(bt, bc, THREADS[(bt, bc)])
             + n * n * bt * bc * (2 if requant else 4))
 
 

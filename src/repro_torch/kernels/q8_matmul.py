@@ -13,6 +13,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import SMS
 from repro_torch.kernels.ref import q8_matmul_ref
 
 __all__ = ["q8_matmul", "q8_matmul_plain", "q8_splits"]
@@ -20,9 +21,8 @@ __all__ = ["q8_matmul", "q8_matmul_plain", "q8_splits"]
 # The kernel's grid puts M / 128 on its y axis (at most 65535 blocks).
 _MAX_M = 65535 * 128
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
-#: The kernel's block tile (rows, columns, k per stage) and the card's SMs.
+#: The kernel's block tile (rows, columns, k per stage).
 TILE = (128, 128, 128)
-SMS = 132
 
 
 def q8_splits(M: int, N: int, K: int) -> int:

@@ -1,6 +1,7 @@
 """Winograd-domain batched int8 GEMM (+ optional Hadamard-requant
-epilogue): the CUDA kernel K2 (``csrc/wino_gemm.cu``) and its plain
-PyTorch version.
+epilogue): the CUDA kernel K2 (``csrc/wino_gemm.cu``, on the int8 tensor
+cores through the mainloop it shares with K4, ``csrc/int8_mma.cuh``) and
+its plain PyTorch version.
 
 For each of the P = n² Winograd positions, an independent GEMM over
 channels: out[p] = x[p] @ w[p] with x (P, M, K) int8, w (P, K, N) int8,
@@ -11,15 +12,18 @@ staged formula.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
 from repro_torch.core.quantization import qmax
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import SMS
 from repro_torch.kernels.ref import wino_gemm_ref
 
 __all__ = ["wino_gemm", "wino_gemm_plain", "requant_plane",
+           "gemm_positions", "gemm_grid", "mainloop_smem_bytes",
            "INT32_ACC_LIMIT", "FP32_EXACT_INT_LIMIT"]
 
 #: Largest magnitude the int32 accumulator of K2 and K4 can hold.
@@ -31,8 +35,61 @@ INT32_ACC_LIMIT = 2 ** 31 - 1
 #: is exact for Cin ≤ 1040.
 FP32_EXACT_INT_LIMIT = 2 ** 24
 
-# The kernel's grid puts M / 64 on its y axis (at most 65535 blocks).
-_MAX_M = 65535 * 64
+#: K2's block tile (rows of x, columns of w), 8 warps (256 threads).
+TILE = (128, 64)
+THREADS = 256
+#: Positions a block may take in turn, most first, and the depth of K a
+#: block should walk at most (four of the mainloop's 64-deep slabs): past
+#: that, a block that takes fewer positions fills more SMs sooner.
+POSITIONS = (4, 2, 1)
+MAX_K = 4 * 64
+#: Blocks a grid should have at the least: two rounds of two blocks an SM,
+#: so the last round's tail stays short.
+MIN_BLOCKS = 4 * SMS
+# The kernel indexes rows and columns as 32-bit ints, a block tile past
+# the last one included, and its grid's x holds every (row, column) tile
+# of one position (at most 2^31 - 1 blocks), its y the groups of
+# positions.
+_INT_MAX = 2 ** 31 - 1
+_MAX_GRID_Y = 65535
+
+
+def mainloop_smem_bytes(bt: int, bc: int, threads: int) -> int:
+    """Shared memory of the int8 mainloop K2 and K4 share
+    (``int8_mma.cuh`` mainloop_bytes): a ring of Xq slabs, a ring of each
+    thread's raw 4 x 4 u_q blocks, and two K-major u_q slabs."""
+    bk, row, stages = 64, 64 + 16, 4   # k per slab, padded row, in flight
+    u_raw = -(-(bk // 4) * (bc // 4) // threads) * threads * 16
+    return stages * (bt * row + u_raw) + 2 * bc * row
+
+
+def gemm_grid(P: int, M: int, N: int, pb: int) -> tuple:
+    """K2's grid for one shape, ``pb`` positions a block: (row tiles ×
+    column tiles, groups of positions)."""
+    return math.ceil(M / TILE[0]) * math.ceil(N / TILE[1]), math.ceil(P / pb)
+
+
+def gemm_positions(P: int, M: int, N: int, K: int) -> int:
+    """Positions a K2 block takes in turn for one shape: the most that
+    keep its walk within ``MAX_K`` of K and the grid at ``MIN_BLOCKS``
+    or more; one where none does."""
+    for pb in POSITIONS:
+        if pb * K <= MAX_K and \
+                math.prod(gemm_grid(P, M, N, pb)) >= MIN_BLOCKS:
+            return pb
+    return 1
+
+
+def _check_grid(P: int, M: int, N: int, pb: int) -> None:
+    """Refuse a shape past the kernel's grid or its 32-bit indices."""
+    bt, bc = TILE
+    x_blocks, y_blocks = gemm_grid(P, M, N, pb)
+    if M + bt > _INT_MAX or N + bc > _INT_MAX or x_blocks > _INT_MAX \
+            or y_blocks > _MAX_GRID_Y:
+        raise ValueError(f"P = {P}, M = {M}, N = {N}: past the kernel's "
+                         f"grid (at most {_INT_MAX} row x column tiles of "
+                         f"{bt} x {bc}, {_MAX_GRID_Y} groups of positions) "
+                         f"or its 32-bit indices (M <= {_INT_MAX - bt})")
 
 
 def requant_plane(acc: torch.Tensor, deq: torch.Tensor, rq: torch.Tensor,
@@ -78,10 +135,13 @@ def wino_gemm(x: torch.Tensor, w: torch.Tensor,
     if x.device.type == "cpu":
         return wino_gemm_plain(x, w, requant_bits, deq, rq)
     dev = _build.cuda_device(x, "wino_gemm")
-    if M > _MAX_M:
-        raise ValueError(f"M = {M} exceeds the kernel's grid ({_MAX_M})")
-    _build.require(x, "x", torch.int8, (P, M, K), dev)
-    _build.require(w, "w", torch.int8, (P, K, N), dev)
+    pb = gemm_positions(P, M, N, K)
+    _check_grid(P, M, N, pb)
+    if K < 1:
+        raise ValueError(f"K = {K}: the kernel takes K >= 1")
+    # the mainloop reads x rows with 16-byte and w rows with 4-byte cp.async
+    _build.require(x, "x", torch.int8, (P, M, K), dev, aligned=True)
+    _build.require(w, "w", torch.int8, (P, K, N), dev, aligned=True)
     qm = 0
     if requant_bits is not None:
         qm = qmax(requant_bits)
@@ -90,7 +150,7 @@ def wino_gemm(x: torch.Tensor, w: torch.Tensor,
     out = torch.empty((P, M, N), dtype=torch.int32, device=dev)
     I, Pt = _build.INT, _build.PTR
     _build.launch("wino_gemm", "wino_gemm",
-                  (Pt, Pt, Pt, I, I, I, I, Pt, Pt, I, Pt),
-                  x, w, out, P, M, N, K, deq, rq, qm, _build.stream(dev))
+                  (Pt, Pt, Pt, I, I, I, I, Pt, Pt, I, I, Pt),
+                  x, w, out, P, M, N, K, deq, rq, qm, pb, _build.stream(dev))
     _build.LAUNCHES["wino_gemm"] += 1
     return out

@@ -6,15 +6,19 @@ plain versions bit for bit. The fp32 outputs too: kernel and plain
 version run the same IEEE operations in the same order (no FMA
 contraction), so the stated bound, 1e-6 of the output's max, is slack.
 """
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.winograd import WinogradSpec
 from repro_torch.kernels import _build, ops
+from repro_torch.kernels import wino_gemm as wg
 from repro_torch.kernels.fused_serve import (fused_gemm_output,
                                              fused_gemm_output_plain)
-from repro_torch.kernels.wino_gemm import wino_gemm, wino_gemm_plain
+from repro_torch.kernels.wino_gemm import (_INT_MAX, POSITIONS, TILE,
+                                           wino_gemm, wino_gemm_plain)
 from repro_torch.kernels.wino_transform import (input_transform,
                                                 input_transform_plain,
                                                 output_transform,
@@ -145,6 +149,103 @@ def test_fused_kernel_is_bitwise_at_its_edges_on_card(m, base, bits, T, cin,
                                    o_cpu["APT"], m=m, requant_bits=bits,
                                    changes_base=cb)
     assert torch.equal(got.cpu(), want)
+
+
+# K1 and K2 at their edges, the cases of chip_smoke.py's phase 3: (m,
+# base, requant bits, T, Cin, Cout). T * Cin off a multiple of 16 sends
+# K1 to its byte stores; T = 301 leaves a partial 256-window chunk;
+# Cin = 3 (the stem) and 19 are unaligned rows for K2; n = 4, 6, 8.
+K12_EDGE_CASES = [
+    (4, "legendre", 9, 1000, 19, 45),
+    (4, "legendre", 8, 301, 64, 45),
+    (4, "legendre", None, 1000, 3, 64),
+    (2, "legendre", 9, 777, 19, 45),
+    (2, "canonical", None, 1000, 3, 45),
+    (6, "legendre", 8, 301, 64, 45),
+    (6, "canonical", 9, 1000, 19, 130),
+]
+
+
+@pytest.mark.parametrize("m,base,bits,T,cin,cout", K12_EDGE_CASES)
+def test_input_transform_is_bitwise_at_its_edges_on_card(m, base, bits, T,
+                                                         cin, cout):
+    dev = _card()
+    spec, tiles, s, _, _, _, _ = _inputs(m, base, seed=T + cin, T=T,
+                                         cin=cin, cout=cout)
+    # scales from this batch's own abs-max, as calibration makes them
+    o_cpu = ops._operands(spec, torch.device("cpu"))
+    o_dev = ops._operands(spec, dev)
+    s = ops.scales_from_abs_max(ops._tiles_abs_max(tiles, spec))
+    cb = spec.changes_base
+    got = input_transform(tiles.to(dev), o_dev["CinvT"], o_dev["BPT"],
+                          s.to(dev), changes_base=cb)
+    want = input_transform_plain(tiles, o_cpu["CinvT"], o_cpu["BPT"], s,
+                                 changes_base=cb)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("m,base,bits,T,cin,cout", K12_EDGE_CASES)
+def test_wino_gemm_is_bitwise_at_its_edges_on_card(m, base, bits, T, cin,
+                                                   cout):
+    dev = _card()
+    _, _, _, _, xq, uq, deq = _inputs(m, base, seed=T + cout, T=T, cin=cin,
+                                      cout=cout)
+    rq = None if bits is None else _rq(xq, uq, deq, bits)
+    # every count of positions a block takes, not only the wrapper's choice
+    for pb in POSITIONS:
+        with mock.patch.object(wg, "gemm_positions", lambda *_: pb):
+            got = wino_gemm(xq.to(dev), uq.to(dev), requant_bits=bits,
+                            deq=None if bits is None else deq.to(dev),
+                            rq=None if bits is None else rq.to(dev))
+        want = wino_gemm_plain(xq, uq, bits, deq, rq)
+        assert torch.equal(got.cpu(), want), pb
+
+
+@pytest.mark.parametrize("P,M,K,N", [(16, 64, 1100, 40), (36, 37, 1200, 45)])
+def test_wino_gemm_is_bitwise_past_2_24_on_card(P, M, K, N):
+    """Saturated ±127 operands: |acc| passes 2^24, where the requant's
+    int32 → fp32 cast rounds."""
+    dev = _card()
+    rng = np.random.default_rng(P + K)
+    xq = np.full((P, M, K), 127, dtype=np.int8)
+    xq[rng.uniform(size=(P, M, K)) < 0.01] = -127
+    wq = np.repeat(np.where(rng.uniform(size=(P, 1, N)) < 0.5, 127, -127)
+                   .astype(np.int8), K, axis=1)
+    wq[rng.uniform(size=(P, K, N)) < 0.01] *= -1
+    xq, wq = torch.from_numpy(xq), torch.from_numpy(wq)
+    deq = torch.from_numpy(rng.uniform(1e-7, 1e-6, (P, 1)).astype(np.float32))
+    acc = wino_gemm_plain(xq, wq)
+    assert float(acc.abs().max()) > 2 ** 24
+    rq = _rq(xq, wq, deq, 9)
+    assert torch.equal(wino_gemm(xq.to(dev), wq.to(dev)).cpu(), acc)
+    got = wino_gemm(xq.to(dev), wq.to(dev), requant_bits=9, deq=deq.to(dev),
+                    rq=rq.to(dev))
+    assert torch.equal(got.cpu(), wino_gemm_plain(xq, wq, 9, deq, rq))
+
+
+def test_kernels_refuse_views_and_shapes_they_do_not_take_on_card():
+    dev = _card()
+    spec, tiles, s, _, _, _, _ = _inputs(4, "legendre", seed=6)
+    o = ops._operands(spec, dev)
+    t = tiles.to(dev)
+    s = s.to(dev)
+    # K1 reads its windows with 16-byte cp.async: a view 4 bytes into its
+    # storage, and a non-contiguous view, are refused
+    flat = torch.zeros(1 + t.numel(), dtype=torch.float32, device=dev)
+    t_off = flat[1:].view(t.shape)
+    t_off.copy_(t)
+    with pytest.raises(ValueError, match="aligned"):
+        input_transform(t_off, o["CinvT"], o["BPT"], s)
+    with pytest.raises(ValueError, match="contiguous"):
+        input_transform(t.transpose(2, 3), o["CinvT"], o["BPT"], s)
+    # K2: M past the grid's 32-bit row index (refused before any launch)
+    M = _INT_MAX - TILE[0] + 1
+    x = torch.empty((1, M, 1), dtype=torch.int8, device=dev)
+    w = torch.zeros((1, 1, 8), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="grid"):
+        wino_gemm(x, w)
+    del x
+    torch.cuda.empty_cache()
 
 
 def test_launch_counters_count_kernel_launches_only():
