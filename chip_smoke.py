@@ -13,20 +13,22 @@ fails the run:
               count the tensor-core MMA and dp4a instructions in the SASS
               of K2, K4 and K5 (``cuobjdump -sass``): every instantiation
               needs >= 1 MMA, and K2's no dp4a; log every kernel's
-              registers and instruction count, and K1's shared-memory
-              loads per fp32 multiply;
+              registers, instruction count and shared-memory loads per
+              fp32 multiply (K1 and K3 included);
 3. kernels  — each kernel against its plain PyTorch version on the card
               at the main path's shapes (ResNet-18 width 1.0, B = 256,
               F(4,3) Legendre, 9-bit Hadamard), plus F(6,3), F(2,3),
               canonical F(4,3), ragged Cin/T/Cout and K4 with the
-              requant off: integer outputs and K4 bit for bit, K3 within
-              1e-6 of its max; K1 and K2 at their edges (ragged T, T off
-              K1's 256-window chunk, Cin 3 and 19, Cout 45, n = 4/6/8,
-              requant off/8/9 bits, K2 sums past 2^24): bit for bit; K5
-              at the llama3.2-1b projection shapes (prefill M = 2048 and
-              decode M = 8), ragged shapes (the predicated path, with and
-              without split K), bf16 outputs and saturated sums past 2^24:
-              bit for bit;
+              requant off: every output bit for bit, K4 also against
+              K2 → K3 (fused == staged kernels); K1 and K2 at their edges
+              (ragged T, T off K1's 256-window chunk, Cin 3 and 19, Cout
+              45, n = 4/6/8, requant off/8/9 bits, K2 sums past 2^24) and
+              K3 at its own (T·C off the chunk, 4 and 16, n = 4/6/8, base
+              on and off, H on the 8- and 9-bit grids and raw past 2^24):
+              bit for bit; K5 at the llama3.2-1b projection shapes
+              (prefill M = 2048 and decode M = 8), ragged shapes (the
+              predicated path, with and without split K), bf16 outputs and
+              saturated sums past 2^24: bit for bit;
 4. main     — ``repro_torch.launch.infer_resnet`` at width 1.0, batch
               256, 2 calibration steps: pack → calibrate → checkpoint →
               restore → serve fused and staged, its fused-vs-staged gate
@@ -40,8 +42,9 @@ fails the run:
               (cuDNN ``F.conv2d``, ``torch._int_mm``; the port calls
               neither), the floors of K1, K3 and K4's epilogue (their
               bitwise-order fp32 sandwich operations at 33.5 T
-              instructions/s), K2 under each count of positions a block, and
-              fused images/s at B = 256;
+              instructions/s) and of the work K3 runs (the base change's
+              zero terms left out), K2 under each count of positions a
+              block, and fused images/s at B = 256;
 6. train    — ``repro_torch.launch.train_resnet_qat`` at width 1.0, batch
               256, F(4,3) Legendre, flex, 9-bit Hadamard, 10 steps: every
               loss finite, every parameter, the flex matrices and the
@@ -73,7 +76,6 @@ FP32_FLOP_S = 67e12
 # two of the 67 TFLOP/s, a lone multiply or add as one instruction
 FP32_INSTR_S = FP32_FLOP_S / 2
 
-FP32_REL = 1e-6
 BATCH = 256
 # The 14 Winograd convs of one ResNet-18 forward at width 1.0, 32x32:
 # (name, tiles T, Cin, Cout, spatial H, count per forward)
@@ -121,6 +123,20 @@ K12_EDGES = [(4, "legendre", 9, 1000, 19, 45),
              (2, "canonical", None, 1000, 3, 45),
              (6, "legendre", 8, 301, 64, 45),
              (6, "canonical", 9, 1000, 19, 130)]
+# K3 at its edges: (m, base, H, T, C). H on the 8- or 9-bit grid, or
+# (None) raw accumulators past 2^24 with the Hadamard stage off. T*C off a
+# multiple of 4 sends K3 to its 4-byte staging; off a multiple of 16 and
+# of the chunk (128 windows) leaves a ragged store tail;
+# n = 4, 6, 8, the base on (legendre) and off (canonical).
+K3_EDGES = [(4, "legendre", 9, 1000, 45),
+            (4, "legendre", 8, 301, 45),
+            (4, "canonical", None, 777, 19),
+            (4, "legendre", None, 1000, 64),
+            (2, "legendre", 9, 777, 19),
+            (2, "canonical", 8, 1000, 3),
+            (6, "legendre", 9, 301, 64),
+            (6, "legendre", 8, 100, 45),
+            (6, "canonical", None, 1000, 19)]
 # K2 with saturated operands: P, M, K, N (|acc| past 2^24)
 K2_SATURATED = [(16, 300, 1200, 64), (36, 100, 1100, 45)]
 
@@ -220,6 +236,12 @@ def sass_counts(lib: str) -> dict:
     return counts
 
 
+def same_bits(a, b) -> bool:
+    """Equal fp32 tensors bit for bit (+0 and -0 differ)."""
+    import torch
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def sandwich_ops(ni: int, no: int) -> int:
     """fp32 multiplies and adds of one sandwich in its bitwise order
     (unrolled for ni <= 6, two contractions for ni = 8), none fused."""
@@ -234,6 +256,27 @@ def epilogue_ops(n: int, m: int, changes_base: bool) -> int:
     position and the sandwiches."""
     return n * n + (sandwich_ops(n, n) if changes_base else 0) + \
         sandwich_ops(n, m)
+
+
+def legendre_zeros(cinvt) -> bool:
+    """Whether C^-T is zero wherever the Legendre base change is
+    (x^j enters P_a only for j <= a with a - j even): where it is, K3
+    leaves the base change's zero terms out."""
+    n = cinvt.shape[0]
+    return all(float(cinvt[a, j]) == 0.0 for a in range(n) for j in range(n)
+               if not (j <= a and (a - j) % 2 == 0))
+
+
+def k3_ops(n: int, m: int, cinvt, changes_base: bool) -> int:
+    """fp32 multiplies and adds K3 runs per (tile, channel) at n <= 6:
+    the scales, the base change over its nonzero terms where C^-T has the
+    Legendre zeros (each term made, multiplied and added: 3 per term, less
+    one add per output), else in full, and the A sandwich in full."""
+    if not (changes_base and n <= 6 and legendre_zeros(cinvt)):
+        return epilogue_ops(n, m, changes_base)
+    terms = sum(1 for a in range(n) for j in range(n)
+                if j <= a and (a - j) % 2 == 0) ** 2
+    return n * n + 3 * terms - n * n + sandwich_ops(n, m)
 
 
 def input_ops(n: int, changes_base: bool) -> int:
@@ -301,26 +344,27 @@ def main() -> int:
     # prints that checkout's counts.
     report["sass"] = {}
     for src, kernel in (("wino_transform", "input_transform_kernel"),
+                        ("wino_transform", "output_transform_kernel"),
                         ("wino_gemm", "wino_gemm_kernel"),
                         ("fused_serve", "fused_kernel"),
                         ("q8_matmul", "q8_wgmma_kernel")):
         counts = {f: c for f, c in
                   sass_counts(str(_build._target(src))).items()
                   if kernel in f}
-        report["sass"][src] = counts
+        report["sass"][kernel] = counts
         for f, c in counts.items():
             log(f"  SASS {src} {f[-60:]}: {c['registers']} registers, "
                 f"{c['instructions']} instructions, {c['mma']} tensor-core "
                 f"MMA, {c['dp4a']} dp4a, {c['lds']} LDS, {c['fmul']} FMUL, "
                 f"{c['lds'] / max(c['fmul'], 1):.3f} LDS per FMUL")
-    for src, counts in report["sass"].items():
-        if src == "wino_transform":
-            continue
+    for kernel in ("wino_gemm_kernel", "fused_kernel", "q8_wgmma_kernel"):
+        counts = report["sass"][kernel]
         if not counts or any(c["mma"] == 0 for c in counts.values()):
-            fail(f"{src}: an instantiation has no tensor-core MMA "
+            fail(f"{kernel}: an instantiation has no tensor-core MMA "
                  f"instruction in its SASS ({counts})")
-        if src == "wino_gemm" and any(c["dp4a"] for c in counts.values()):
-            fail(f"wino_gemm: an instantiation still uses dp4a ({counts})")
+    if any(c["dp4a"] for c in report["sass"]["wino_gemm_kernel"].values()):
+        fail(f"wino_gemm: an instantiation still uses dp4a "
+             f"({report['sass']['wino_gemm_kernel']})")
 
     # 3. kernels against their plain versions -------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -373,11 +417,10 @@ def main() -> int:
                           "fused_gemm_output": (y4, y4_p),
                           "fused_vs_staged_kernels": (y4, y3)}.items():
             d = float((a - b).abs().max())
-            r = d / max(float(b.abs().max()), 1e-30)
             res[k] = d
-            res[k + "_rel"] = r
-            if not r <= FP32_REL:
-                fail(f"{label}: {k} max|kernel - plain| / max|plain| = {r}")
+            if not same_bits(a, b):
+                fail(f"{label}: {k} is not bit for bit (max |difference| "
+                     f"{d})")
         errs["input_transform"] = max(errs["input_transform"],
                                       res["input_transform"])
         errs["wino_gemm"] = max(errs["wino_gemm"], res["wino_gemm"],
@@ -386,12 +429,8 @@ def main() -> int:
                                        res["output_transform"])
         errs["fused_gemm_output"] = max(errs["fused_gemm_output"],
                                         res["fused_gemm_output"])
-        if not torch.equal(y4, y4_p):
-            fail(f"{label}: K4 is not bit for bit with its plain version")
-        log(f"{label}: Xq, int32 GEMM, requant plane and K4 bitwise; fp32 "
-            f"rel err K3 {res['output_transform_rel']:.3g}, K4 "
-            f"{res['fused_gemm_output_rel']:.3g}, K4 vs staged kernels "
-            f"{res['fused_vs_staged_kernels_rel']:.3g}")
+        log(f"{label}: Xq, int32 GEMM, requant plane, K3 and K4 bit for "
+            f"bit with their plain versions, K4 with K2 → K3")
         return res
 
     main_spec = WinogradSpec(m=4, r=3, base="legendre",
@@ -466,6 +505,36 @@ def main() -> int:
             fail(f"{label}: K1 differs by {d1}, K2 by {d2}")
         log(f"{label}: K1 and K2 bit for bit")
         del tiles, xq, xq_p, h, h_p
+    # K3 at its edges
+    report["checks"]["k3_edges"] = {}
+    for m_, base, bits, T, C in K3_EDGES:
+        spec = WinogradSpec(m=m_, r=3, base=base)
+        o = ops._operands(spec, dev)
+        P = spec.n ** 2
+        if bits is None:     # raw accumulators, dequantized by deq
+            h = torch.randint(-2 ** 30, 2 ** 30, (P, T, C), generator=gen,
+                              device=dev, dtype=torch.int32)
+            s = torch.rand((P, 1), generator=gen, device=dev) * 1.5e-10 \
+                + 5e-11
+        else:                # the requant grid, rescaled by rq
+            qm = 2 ** (bits - 1) - 1
+            h = torch.randint(-qm, qm + 1, (P, T, C), generator=gen,
+                              device=dev, dtype=torch.int32)
+            s = torch.rand((P, 1), generator=gen, device=dev) * 1e-2 + 1e-3
+        y = wt.output_transform(h, s, o["CinvT"], o["APT"], m=m_,
+                                changes_base=spec.changes_base)
+        y_p = wt.output_transform_plain(h, s, o["CinvT"], o["APT"], m=m_,
+                                        changes_base=spec.changes_base)
+        torch.cuda.synchronize()
+        label = (f"K3 edge F({m_},3) {base} H {bits or 'raw'} T={T} C={C} "
+                 f"(T*C % 4 = {T * C % 4}, max |H| {int(h.abs().max())})")
+        d = float((y - y_p).abs().max())
+        report["checks"]["k3_edges"][label] = d
+        errs["output_transform"] = max(errs["output_transform"], d)
+        if not same_bits(y, y_p):
+            fail(f"{label}: differs from its plain version by {d}")
+        log(f"{label}: bit for bit")
+        del h, y, y_p
     for P, M, K, N in K2_SATURATED:
         xs = torch.where(torch.rand((P, M, K), generator=gen, device=dev)
                          < 0.01, -127, 127).to(torch.int8)
@@ -692,6 +761,14 @@ def main() -> int:
             log(f"time {lname:4s} {k:17s} floor (bitwise sandwiches, "
                 f"{nops_f // (T * (cin if k == 'input_transform' else cout))}"
                 f" fp32 ops per (t, c)): {f_ms:.4f} ms")
+        # K3 runs fewer operations than the full order: its own work floor
+        ops3 = k3_ops(n, m, o["CinvT"], True)
+        w_ms = T * cout * ops3 / FP32_INSTR_S * 1e3
+        rows["output_transform"]["work_floor_ms"] = w_ms
+        per["output_transform"]["work_floor_ms"] = \
+            per["output_transform"].get("work_floor_ms", 0.0) + count * w_ms
+        log(f"time {lname:4s} output_transform  floor of the work it runs "
+            f"({ops3} fp32 ops per (t, c)): {w_ms:.4f} ms")
         # K2 under each count of positions a block takes (the wrapper's
         # choice swapped)
         by_pb = {}
@@ -714,7 +791,9 @@ def main() -> int:
             f"{r['library_ms']:.4f} ms"
             + (f", epilogue floor {r['epilogue_floor_ms']:.4f} ms"
                if "epilogue_floor_ms" in r else "")
-            + (f", floor {r['floor_ms']:.4f} ms" if "floor_ms" in r else ""))
+            + (f", floor {r['floor_ms']:.4f} ms" if "floor_ms" in r else "")
+            + (f", work floor {r['work_floor_ms']:.4f} ms"
+               if "work_floor_ms" in r else ""))
 
     # K5 at the llama3.2-1b projection shapes, prefill and decode
     gen = torch.Generator(device=dev).manual_seed(3)

@@ -25,12 +25,13 @@ namespace repro {
 // attribute, set once).
 constexpr int kMaxDevices = 64;
 
-// Windows up to this size run the unrolled sandwich; larger windows
-// (F(6,3): n = 8) run two contractions, as the JAX kernels do.
+// Windows up to this size run the sandwich from a term table (j outer,
+// k inner, the JAX kernels' unrolled order); larger windows (F(6,3):
+// n = 8) run two contractions, as the JAX kernels do.
 constexpr int kUnrollMaxN = 6;
 
 // Floats of shared memory one sandwich operand takes.
-//   NI <= 6: the table term[a][b][j][k] = L[a][j] * Rt[b][k];
+//   NI <= 6: the table term[j][k][a][b] = L[a][j] * Rt[b][k];
 //   NI  > 6: L (NO x NI) followed by Rt (NO x NI).
 template <int NI, int NO>
 constexpr int kOperandFloats =
@@ -60,30 +61,10 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Fill one sandwich operand in shared memory from the (NO x NI) row-major
-// matrices L and Rt in device memory, in the layout of repro::sandwich
-// (term[a][b][j][k] for NI <= 6). All threads of the block take part; the
-// caller synchronises afterwards.
-template <int NI, int NO>
-__device__ void load_operand(const float* __restrict__ L,
-                             const float* __restrict__ Rt, float* sm) {
-  if constexpr (NI <= kUnrollMaxN) {
-    for (int i = threadIdx.x; i < NO * NO * NI * NI; i += blockDim.x) {
-      const int k = i % NI, j = (i / NI) % NI;
-      const int b = (i / (NI * NI)) % NO, a = i / (NI * NI * NO);
-      sm[i] = __fmul_rn(L[a * NI + j], Rt[b * NI + k]);
-    }
-  } else {
-    for (int i = threadIdx.x; i < NO * NI; i += blockDim.x) {
-      sm[i] = L[i];
-      sm[NO * NI + i] = Rt[i];
-    }
-  }
-}
-
-// The same operand in the layout of sandwich_jk: for NI <= 6 the table
-// term[j][k][a][b] = L[a][j] * Rt[b][k] (the kernels' wrappers make the
-// same table with torch for K4: fused_serve._terms); for NI > 6 L and Rt
-// as they are.
+// matrices L and Rt in device memory: for NI <= 6 the table
+// term[j][k][a][b] = L[a][j] * Rt[b][k] (K4's wrapper makes the same table
+// with torch: fused_serve._terms); for NI > 6 L and Rt as they are. All
+// threads of the block take part; the caller synchronises afterwards.
 template <int NI, int NO>
 __device__ void load_terms(const float* __restrict__ L,
                            const float* __restrict__ Rt, float* sm) {
@@ -94,68 +75,58 @@ __device__ void load_terms(const float* __restrict__ L,
       sm[i] = __fmul_rn(L[a * NI + j], Rt[b * NI + k]);
     }
   } else {
-    load_operand<NI, NO>(L, Rt, sm);
+    for (int i = threadIdx.x; i < NO * NI; i += blockDim.x) {
+      sm[i] = L[i];
+      sm[NO * NI + i] = Rt[i];
+    }
   }
 }
 
 // out[a][b] = sum_{j,k} L[a][j] * x[j][k] * Rt[b][k] over one NI x NI
-// window held in registers. For NI <= 6 the sum runs j outer, k inner,
-// each term x[j][k] * (L[a][j] * Rt[b][k]) -- the order of the JAX
-// kernels' _sandwich_unrolled. For NI > 6 it runs as two contractions,
+// window held in registers, for the windows too large for the table form
+// (NI > 6), as two contractions, as the JAX kernels run them:
 // t[a][k] = sum_j L[a][j] x[j][k], then out[a][b] = sum_k t[a][k] Rt[b][k],
-// each sum in ascending index order.
+// each sum in ascending index order. sm holds L, then Rt (load_terms).
 template <int NI, int NO>
 __device__ __forceinline__ void sandwich(const float* __restrict__ sm,
                                          const float (&x)[NI * NI],
                                          float (&out)[NO * NO]) {
-  if constexpr (NI <= kUnrollMaxN) {
+  static_assert(NI > kUnrollMaxN, "windows up to 6 x 6 take the table form");
+  const float* L = sm;
+  const float* Rt = sm + NO * NI;
+  float t[NO * NI];
 #pragma unroll
-    for (int a = 0; a < NO; ++a) {
+  for (int a = 0; a < NO; ++a) {
 #pragma unroll
-      for (int b = 0; b < NO; ++b) {
-        const float* term = sm + (a * NO + b) * NI * NI;
-        float acc = __fmul_rn(x[0], term[0]);
+    for (int k = 0; k < NI; ++k) {
+      float acc = __fmul_rn(L[a * NI], x[k]);
 #pragma unroll
-        for (int jk = 1; jk < NI * NI; ++jk)
-          acc = __fadd_rn(acc, __fmul_rn(x[jk], term[jk]));
-        out[a * NO + b] = acc;
-      }
+      for (int j = 1; j < NI; ++j)
+        acc = __fadd_rn(acc, __fmul_rn(L[a * NI + j], x[j * NI + k]));
+      t[a * NI + k] = acc;
     }
-  } else {
-    const float* L = sm;
-    const float* Rt = sm + NO * NI;
-    float t[NO * NI];
+  }
 #pragma unroll
-    for (int a = 0; a < NO; ++a) {
+  for (int a = 0; a < NO; ++a) {
 #pragma unroll
-      for (int k = 0; k < NI; ++k) {
-        float acc = __fmul_rn(L[a * NI], x[k]);
+    for (int b = 0; b < NO; ++b) {
+      float acc = __fmul_rn(t[a * NI], Rt[b * NI]);
 #pragma unroll
-        for (int j = 1; j < NI; ++j)
-          acc = __fadd_rn(acc, __fmul_rn(L[a * NI + j], x[j * NI + k]));
-        t[a * NI + k] = acc;
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < NO; ++a) {
-#pragma unroll
-      for (int b = 0; b < NO; ++b) {
-        float acc = __fmul_rn(t[a * NI], Rt[b * NI]);
-#pragma unroll
-        for (int k = 1; k < NI; ++k)
-          acc = __fadd_rn(acc, __fmul_rn(t[a * NI + k], Rt[b * NI + k]));
-        out[a * NO + b] = acc;
-      }
+      for (int k = 1; k < NI; ++k)
+        acc = __fadd_rn(acc, __fmul_rn(t[a * NI + k], Rt[b * NI + k]));
+      out[a * NO + b] = acc;
     }
   }
 }
 
 // out[w][a][b] = sum_{j,k} x[w][j][k] * term[j][k][a][b] for W NI x NI
 // windows, from the [j][k][a][b] table of load_terms. Each output's sum
-// runs j outer and k inner (repro::sandwich's unrolled order, so the
-// result is the same bit for bit), G outputs at a time: for each group of
-// G outputs, (j, k) runs outside and the W x G sums inside, so one
-// 16-byte table load feeds 4 * W products and only W * G sums are live.
+// runs j outer and k inner, each term x[j][k] * (L[a][j] * Rt[b][k]) --
+// the order of the JAX kernels' _sandwich_unrolled and of the plain
+// version (wino_transform.sandwich), so the result is the same bit for
+// bit -- G outputs at a time: for each group of G outputs, (j, k) runs
+// outside and the W x G sums inside, so one 16-byte table load feeds
+// 4 * W products and only W * G sums are live.
 // emit(g, acc) takes group g's sums, acc[w][e] for output g * G + e of
 // window w, as soon as they are complete. The loop over groups stays
 // rolled: unrolled, one sandwich at n = 6 is ~8,000 instructions, and a
@@ -191,6 +162,46 @@ __device__ __forceinline__ void sandwich_terms_grouped(
   }
 }
 
+// Whether the Legendre base change C^-T (the L of the first output-
+// transform sandwich) can have a nonzero at (a, j): x^j enters the
+// Legendre polynomial P_a only for j <= a with a - j even.
+__host__ __device__ constexpr bool legendre_nonzero(int a, int j) {
+  return j <= a && (a - j) % 2 == 0;
+}
+
+// out[a][b] = sum_{j,k} x[j][k] * (L[a][j] * L[b][k]) over the terms
+// whose L[a][j] and L[b][k] may be nonzero in the Legendre base change
+// (legendre_nonzero), each sum j outer, k inner: at n = 6, 144 of the
+// 1,296 terms. The terms are the products that load_terms tabulates,
+// made here from l, L's entries held in registers. Leaving out a zero
+// term x * (+-0) of a finite x changes no partial sum's value, only,
+// where the sum is zero, maybe its sign: an output that is not zero is
+// sandwich_terms's bit for bit, and the caller redoes a window with a
+// zero output in full.
+template <int NI>
+__device__ __forceinline__ void sandwich_legendre(const float (&l)[NI * NI],
+                                                  const float (&x)[NI * NI],
+                                                  float (&out)[NI * NI]) {
+#pragma unroll
+  for (int a = 0; a < NI; ++a)
+#pragma unroll
+    for (int b = 0; b < NI; ++b) {
+      float acc = 0.f;
+      bool first = true;
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int k = 0; k < NI; ++k) {
+          if (!legendre_nonzero(a, j) || !legendre_nonzero(b, k)) continue;
+          const float p =
+              __fmul_rn(x[j * NI + k], __fmul_rn(l[a * NI + j], l[b * NI + k]));
+          acc = first ? p : __fadd_rn(acc, p);
+          first = false;
+        }
+      out[a * NI + b] = acc;
+    }
+}
+
 // out[a][b] = sum_{j,k} x[j][k] * term[j][k][a][b] over one NI x NI
 // window, all NO^2 outputs in one group: NO^2 independent add chains in
 // flight, and each 16-byte load of the table feeds four products.
@@ -208,7 +219,7 @@ __device__ __forceinline__ void sandwich_terms(const float* __restrict__ sm,
 
 // One sandwich from an operand that load_terms (or the wrapper) laid out:
 // the table form for NI <= 6, the two contractions of repro::sandwich (L
-// and Rt as they are) for NI = 8. The same values as repro::sandwich.
+// and Rt as they are) for NI = 8.
 template <int NI, int NO>
 __device__ __forceinline__ void sandwich_jk(const float* __restrict__ sm,
                                             const float (&x)[NI * NI],

@@ -14,7 +14,8 @@
 // sandwich order (Xq is held exact against JAX), each product and sum a
 // separate rounded fp32 operation: 2 * 36 * 71 = 5,112 of them per (t, c)
 // for the input transform at F(4,3) with the base change. At 33.5 T fp32
-// instructions/s that order, not the bytes, sets the floor.
+// instructions/s that order, not the bytes, sets the input transform's
+// floor; the output transform leaves out the base change's zero terms.
 //
 // Design of the input transform (K1):
 // * A persistent grid (as many blocks as fit the card at once: four
@@ -42,24 +43,52 @@
 //   go out and the SM's other blocks compute.
 // * Registers stay within 128 a thread at n <= 6, with no spill.
 //
-// The output transform (K3) keeps its first design: one thread per (t, c)
-// and term tables built per block in the [a][b][j][k] layout. The
-// transform matrices are runtime operands (flex makes them learnable), so
-// they are read per launch, never baked in. Tensor cores have no role at
-// 6x6.
+// Design of the output transform (K3). Its full order is 3,728 separate
+// fp32 operations per (t, c) at F(4,3) with the base change (the scale of
+// each position and both sandwiches) against 144 bytes read and 64
+// written, 0.89 ms a staged forward at 33.5 T/s. But 1,152 of the base
+// change's 1,296 terms L[a][j] * L[b][k] are zero: the Legendre C^-T has
+// x^j in row a only for j <= a with a - j even. Leaving a zero term out
+// changes no nonzero value (see sandwich_legendre), so K3 runs 1,568
+// operations per (t, c) (the 144 terms' own products included), and the
+// bytes come near to bounding it.
+// * A persistent grid of 128-thread blocks (three an SM at n <= 6, up
+//   to 168 registers a thread) walks chunks of 128 consecutive (t, c)
+//   windows. H is position-major, so a chunk is n^2 rows of consecutive
+//   int32, staged with 16-byte cp.async where every row starts 16-byte
+//   aligned (T*C a multiple of 4), else with 4-byte copies. A thread
+//   reads its window, one column of the rows (no bank conflicts), into
+//   registers, and the block issues the next chunk at once, so its copy
+//   overlaps the sandwiches.
+// * One window a thread, in registers from H to its outputs. Where C^-T
+//   has the Legendre zeros (checked per block, with every scale finite),
+//   the base change runs over its 144 nonzero terms, made from C^-T held
+//   in registers (sandwich_legendre); else it runs in full from the term
+//   table, four outputs at a time with the group loop rolled
+//   (sandwich_terms_grouped). The A sandwich runs from its table, all
+//   outputs at once (sandwich_terms, K4's epilogue); the tables are built
+//   once per block in the [j][k][a][b] layout. A window with a zero
+//   output is redone in full from H, since a left-out term can only
+//   change the sign of a zero. At n = 8 two contractions, as in the JAX
+//   kernel.
+// * The (m x m) outputs are staged in their own room, window by window as
+//   they lie in device memory, and leave in coalesced 16-byte stores (the
+//   ragged tail included). At m = 4 a window's four 16-byte pieces are
+//   swizzled so that staging and reading are both free of bank conflicts.
+// The transform matrices are runtime operands (flex makes them
+// learnable), so they are read per launch, never baked in: a C^-T
+// without the Legendre zeros takes the full order. Tensor cores have no
+// role: their products round differently.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+// Threads of a block of either transform.
+constexpr int kThreads = 128;
 
-// Threads of an input-transform block; four blocks share an SM at n <= 6.
-constexpr int kInThreads = 128;
-
-// Windows a thread of the input transform computes: two where the table
-// form runs (one 16-byte table load then feeds eight products), one at
-// n = 8.
+// Windows a thread computes: two where the table form runs (one 16-byte
+// table load then feeds eight products), one at n = 8.
 template <int N>
 __host__ __device__ constexpr int windows_per_thread() {
   return N <= repro::kUnrollMaxN ? 2 : 1;
@@ -68,7 +97,7 @@ __host__ __device__ constexpr int windows_per_thread() {
 // Windows a block stages and computes at once.
 template <int N>
 __host__ __device__ constexpr int chunk() {
-  return kInThreads * windows_per_thread<N>();
+  return kThreads * windows_per_thread<N>();
 }
 
 // Floats between windows in shared memory: an odd number of 16-byte pieces.
@@ -87,7 +116,7 @@ __host__ __device__ constexpr int input_smem_bytes() {
 
 template <int N>
 __global__ void
-__launch_bounds__(kInThreads, N <= repro::kUnrollMaxN ? 4 : 1)
+__launch_bounds__(kThreads, N <= repro::kUnrollMaxN ? 4 : 1)
 input_transform_kernel(const float* __restrict__ tiles,
                        const float* __restrict__ cinvt,
                        const float* __restrict__ bpt,
@@ -109,7 +138,7 @@ input_transform_kernel(const float* __restrict__ tiles,
   const int tid = threadIdx.x;
   if (changes_base) repro::load_terms<N, N>(cinvt, cinvt, s_base);
   repro::load_terms<N, N>(bpt, bpt, s_b);
-  for (int i = tid; i < NN; i += kInThreads) s_s[i] = scale[i];
+  for (int i = tid; i < NN; i += kThreads) s_s[i] = scale[i];
 
   const long long chunks = (TC + CH - 1) / CH;
   // the chunk's windows in 16-byte pieces, thread i on pieces i, i + 128,
@@ -119,7 +148,7 @@ input_transform_kernel(const float* __restrict__ tiles,
     const float* src = tiles + w0 * NN;
 #pragma unroll
     for (int j = 0; j < W * PIECES; ++j) {
-      const int i = tid + j * kInThreads;
+      const int i = tid + j * kThreads;
       const int w = i / PIECES, piece = i % PIECES;
       const bool in = w0 + w < TC;
       repro::cp_async16(s_win + w * WS + piece * 4, in ? src + 4 * i : tiles,
@@ -129,7 +158,7 @@ input_transform_kernel(const float* __restrict__ tiles,
   // this thread's windows (tid, tid + 128): their slots hold the window,
   // then the sums of each sandwich in turn
   auto own = [&](int w) {
-    return reinterpret_cast<float4*>(s_win + (w * kInThreads + tid) * WS);
+    return reinterpret_cast<float4*>(s_win + (w * kThreads + tid) * WS);
   };
   auto load_own = [&](float (&v)[W][NN]) {
 #pragma unroll
@@ -189,7 +218,7 @@ input_transform_kernel(const float* __restrict__ tiles,
     // call, and few values are live here
 #pragma unroll 1
     for (int w = 0; w < W; ++w) {
-      const long long idx = w0 + w * kInThreads + tid;
+      const long long idx = w0 + w * kThreads + tid;
 #pragma unroll 1
       for (int i = 0; i < PIECES; ++i) {
         const float4 f = own(w)[i];
@@ -200,7 +229,7 @@ input_transform_kernel(const float* __restrict__ tiles,
           const int8_t q =
               static_cast<int8_t>(repro::quantize(v[e], s_s[p], 127.f));
           if (vec_out)
-            s_out[p * CH + w * kInThreads + tid] = q;
+            s_out[p * CH + w * kThreads + tid] = q;
           else if (idx < TC)
             out[p * TC + idx] = q;
         }
@@ -210,7 +239,7 @@ input_transform_kernel(const float* __restrict__ tiles,
     if (c + gridDim.x < chunks) issue(c + gridDim.x);
     repro::cp_async_commit();            // lands while the rows go out
     if (vec_out) {
-      for (int i = tid; i < NN * (CH / 16); i += kInThreads) {
+      for (int i = tid; i < NN * (CH / 16); i += kThreads) {
         const int p = i / (CH / 16), piece = i % (CH / 16);
         const long long o = w0 + piece * 16;
         if (o < TC)
@@ -221,79 +250,226 @@ input_transform_kernel(const float* __restrict__ tiles,
   }
 }
 
+// Windows a block of the output transform stages and computes at once:
+// one a thread, each held in registers from H to its outputs.
+constexpr int kOutChunk = kThreads;
+
+// Dynamic shared memory of the output transform: the two term tables,
+// the scales, one chunk of H (n^2 rows of kOutChunk int32) and the
+// chunk's outputs (kOutChunk x m x m floats).
 template <int N, int M>
-__global__ void __launch_bounds__(kThreads)
+__host__ __device__ constexpr int output_smem_bytes() {
+  return 4 * (repro::kOperandFloats<N, N> + repro::kOperandFloats<N, M> +
+              N * N) +
+         4 * (N * N + M * M) * kOutChunk;
+}
+
+// Which 16-byte piece of window i's staged outputs holds its piece v. At
+// m = 4 (four pieces, 64 bytes a window) neighbouring threads' windows
+// would sit on the same banks, so the pieces are turned by bits 1-2 of
+// the window; at m = 2 and 6 (one and nine pieces) they stay in order.
+template <int M>
+__device__ __forceinline__ int out_piece(int i, int v) {
+  return M * M == 16 ? v ^ ((i >> 1) & 3) : v;
+}
+
+template <int N, int M>
+__global__ void
+__launch_bounds__(kThreads, N <= repro::kUnrollMaxN ? 3 : 1)
 output_transform_kernel(const int32_t* __restrict__ h,
                         const float* __restrict__ scale,
                         const float* __restrict__ cinvt,
                         const float* __restrict__ apt,
                         float* __restrict__ out, long long TC,
-                        int changes_base) {
-  __shared__ float sm_base[repro::kOperandFloats<N, N>];
-  __shared__ float sm_a[repro::kOperandFloats<N, M>];
-  __shared__ float sm_s[N * N];
-  if (changes_base) repro::load_operand<N, N>(cinvt, cinvt, sm_base);
-  repro::load_operand<N, M>(apt, apt, sm_a);
-  for (int i = threadIdx.x; i < N * N; i += blockDim.x) sm_s[i] = scale[i];
-  __syncthreads();
+                        int changes_base, int vec_in) {
+  constexpr int NN = N * N, MM = M * M, CH = kOutChunk;
+  constexpr int FB = repro::kOperandFloats<N, N>;
+  constexpr int FA = repro::kOperandFloats<N, M>;
+  constexpr int OP = MM / 4;            // 16-byte pieces of a window's outputs
+  static_assert(FB % 4 == 0 && FA % 4 == 0 && (FB + FA + NN) % 4 == 0 &&
+                    MM % 4 == 0 && MM <= NN,
+                "16-byte tables, rows and output pieces");
+  static_assert((NN * CH / 4) % kThreads == 0, "whole 16-byte copies");
+  extern __shared__ __align__(16) float smem_f[];
+  float* s_base = smem_f;
+  float* s_a = s_base + FB;
+  float* s_s = s_a + FA;
+  int32_t* s_h = reinterpret_cast<int32_t*>(s_s + NN);  // n^2 rows of CH
+  float* s_out = s_s + NN + NN * CH;     // the chunk's outputs
 
-  const long long idx = blockIdx.x * static_cast<long long>(kThreads) +
-                        threadIdx.x;
-  if (idx >= TC) return;
-
-  float x[N * N];
+  const int tid = threadIdx.x;
+  if (changes_base) repro::load_terms<N, N>(cinvt, cinvt, s_base);
+  repro::load_terms<N, M>(apt, apt, s_a);
+  for (int i = tid; i < NN; i += kThreads) s_s[i] = scale[i];
+  // The base change leaves out its zero terms (sandwich_legendre) where
+  // C^-T has the Legendre base's zeros and every x = f32(h) * s is finite
+  // (|h| <= 2^31; an x * 0 of an infinite x would be NaN).
+  bool sparse = false;
+  float l[NN];                           // C^-T for sandwich_legendre
+  if constexpr (N <= repro::kUnrollMaxN) {
+    if (changes_base) {
+      bool off = false;
+      for (int i = tid; i < NN; i += kThreads)
+        off |= !(repro::legendre_nonzero(i / N, i % N) || cinvt[i] == 0.f) ||
+               !(fabsf(scale[i]) <= 1e29f);
+      sparse = !__syncthreads_or(off);
 #pragma unroll
-  for (int p = 0; p < N * N; ++p)
-    x[p] = __fmul_rn(static_cast<float>(h[p * TC + idx]), sm_s[p]);
-  float y[M * M];
-  if (changes_base) {
-    float z[N * N];
-    repro::sandwich<N, N>(sm_base, x, z);
-    repro::sandwich<N, M>(sm_a, z, y);
-  } else {
-    repro::sandwich<N, M>(sm_a, x, y);
+      for (int i = 0; i < NN; ++i)
+        l[i] = repro::legendre_nonzero(i / N, i % N) ? cinvt[i] : 0.f;
+    }
   }
-  float4* dst = reinterpret_cast<float4*>(out + idx * M * M);
+
+  const long long chunks = (TC + CH - 1) / CH;
+  // position p's CH values of the chunk into row p, zero-filled past the
+  // last window: 16-byte pieces, thread i on pieces i, i + 128, ...
+  // (coalesced), or single values where the rows are not 16-byte aligned
+  auto issue = [&](long long c) {
+    const long long w0 = c * CH;
+    if (vec_in) {
 #pragma unroll
-  for (int i = 0; i < M * M / 4; ++i)
-    dst[i] = make_float4(y[4 * i], y[4 * i + 1], y[4 * i + 2], y[4 * i + 3]);
+      for (int j = 0; j < NN * CH / 4 / kThreads; ++j) {
+        const int i = tid + j * kThreads;
+        const int p = i / (CH / 4), w = 4 * (i % (CH / 4));
+        const bool in = w0 + w < TC;
+        repro::cp_async16(s_h + p * CH + w, in ? h + p * TC + w0 + w : h, in);
+      }
+    } else {
+#pragma unroll 4
+      for (int i = tid; i < NN * CH; i += kThreads) {
+        const int p = i / CH, w = i % CH;
+        const bool in = w0 + w < TC;
+        repro::cp_async4(s_h + i, in ? h + p * TC + w0 + w : h, in);
+      }
+    }
+  };
+
+  long long c = blockIdx.x;
+  if (c < chunks) issue(c);
+  repro::cp_async_commit();
+  for (; c < chunks; c += gridDim.x) {
+    const long long w0 = c * CH, idx = w0 + tid;
+    repro::cp_async_wait<0>();
+    __syncthreads();                     // the chunk is in
+    // this thread's window, from its column of the rows
+    float x[NN];
+#pragma unroll
+    for (int p = 0; p < NN; ++p)
+      x[p] = __fmul_rn(static_cast<float>(s_h[p * CH + tid]), s_s[p]);
+    __syncthreads();                     // windows in registers: rows free
+    if (c + gridDim.x < chunks) issue(c + gridDim.x);
+    repro::cp_async_commit();
+    float y[MM];
+    for (bool skip = sparse;; skip = false) {
+      if (changes_base) {
+        float z[NN];
+        if constexpr (N <= repro::kUnrollMaxN) {
+          if (skip) {
+            repro::sandwich_legendre<N>(l, x, z);
+          } else {
+            // the full order, four outputs at a time with the group loop
+            // rolled (off the Legendre path, so kept small)
+            float zl[NN];
+            repro::sandwich_terms_grouped<N, N, 1, 4>(
+                s_base, reinterpret_cast<const float(&)[1][NN]>(x),
+                [&](int g, const float(&acc)[1][4]) {
+#pragma unroll
+                  for (int e = 0; e < 4; ++e) zl[4 * g + e] = acc[0][e];
+                });
+#pragma unroll
+            for (int p = 0; p < NN; ++p) z[p] = zl[p];
+          }
+        } else {
+          repro::sandwich_jk<N, N>(s_base, x, z);
+        }
+        repro::sandwich_jk<N, M>(s_a, z, y);
+      } else {
+        repro::sandwich_jk<N, M>(s_a, x, y);
+      }
+      bool zero = false;
+#pragma unroll
+      for (int q = 0; q < MM; ++q) zero |= y[q] == 0.f;
+      if (!skip || !zero || idx >= TC) break;
+      // a zero's sign may differ from the full order's: redo the window
+      // in full, from H in device memory
+#pragma unroll
+      for (int p = 0; p < NN; ++p)
+        x[p] = __fmul_rn(static_cast<float>(h[p * TC + idx]), s_s[p]);
+    }
+#pragma unroll
+    for (int v = 0; v < OP; ++v)
+      reinterpret_cast<float4*>(s_out + tid * MM)[out_piece<M>(tid, v)] =
+          make_float4(y[4 * v], y[4 * v + 1], y[4 * v + 2], y[4 * v + 3]);
+    __syncthreads();                     // the chunk's outputs are staged
+    // the chunk's outputs lie contiguous in device memory
+    const long long left = TC - w0;
+    const int pieces = (left < CH ? static_cast<int>(left) : CH) * OP;
+    float4* dst = reinterpret_cast<float4*>(out + w0 * MM);
+    for (int r = tid; r < pieces; r += kThreads)
+      dst[r] = reinterpret_cast<const float4*>(s_out + (r / OP) * MM)
+          [out_piece<M>(r / OP, r % OP)];
+  }
 }
 
-int blocks_for(long long TC) {
-  return static_cast<int>((TC + kThreads - 1) / kThreads);
-}
-
-// The input transform's persistent grid: as many blocks as the card holds
-// at once (found once per device), or one per chunk where there are fewer.
-template <int N>
-int launch_input(const float* tiles, const float* cinvt, const float* bpt,
-                 const float* scale, int8_t* out, long long TC,
-                 int changes_base, cudaStream_t stream) {
-  constexpr int smem = input_smem_bytes<N>();
-  static int resident[repro::kMaxDevices] = {};   // blocks, 0 = not yet found
+// Blocks of a persistent grid: as many as the card holds at once (found
+// once per device, with `smem` bytes of dynamic shared memory a block),
+// or one per chunk where there are fewer. Returns a cudaError_t.
+template <class Kernel>
+int persistent_grid(Kernel kernel, int smem, long long chunks,
+                    int (&resident)[repro::kMaxDevices], int* grid) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess || dev >= repro::kMaxDevices)
     return static_cast<int>(e != cudaSuccess ? e : cudaErrorInvalidDevice);
   if (resident[dev] == 0) {
-    e = cudaFuncSetAttribute(input_transform_kernel<N>,
+    e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
     int sms = 0, per_sm = 0;
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, input_transform_kernel<N>, kInThreads, smem);
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
     resident[dev] = sms * per_sm;
   }
-  const long long chunks = (TC + chunk<N>() - 1) / chunk<N>();
-  const int grid = static_cast<int>(
-      chunks < resident[dev] ? chunks : resident[dev]);
-  input_transform_kernel<N><<<grid, kInThreads, smem, stream>>>(
+  *grid = static_cast<int>(chunks < resident[dev] ? chunks : resident[dev]);
+  return static_cast<int>(cudaSuccess);
+}
+
+template <int N>
+int launch_input(const float* tiles, const float* cinvt, const float* bpt,
+                 const float* scale, int8_t* out, long long TC,
+                 int changes_base, cudaStream_t stream) {
+  constexpr int smem = input_smem_bytes<N>();
+  static int resident[repro::kMaxDevices] = {};   // blocks, 0 = not yet found
+  int grid = 0;
+  const int e = persistent_grid(input_transform_kernel<N>, smem,
+                                (TC + chunk<N>() - 1) / chunk<N>(),
+                                resident, &grid);
+  if (e != cudaSuccess) return e;
+  input_transform_kernel<N><<<grid, kThreads, smem, stream>>>(
       tiles, cinvt, bpt, scale, out, TC, changes_base);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int N, int M>
+int launch_output(const int32_t* h, const float* scale, const float* cinvt,
+                  const float* apt, float* out, long long TC,
+                  int changes_base, cudaStream_t stream) {
+  constexpr int smem = output_smem_bytes<N, M>();
+  static int resident[repro::kMaxDevices] = {};   // blocks, 0 = not yet found
+  int grid = 0;
+  const int e = persistent_grid(output_transform_kernel<N, M>, smem,
+                                (TC + kOutChunk - 1) / kOutChunk, resident,
+                                &grid);
+  if (e != cudaSuccess) return e;
+  // 16-byte copies of H where every row of a chunk starts 16-byte aligned
+  const int vec_in =
+      TC % 4 == 0 && reinterpret_cast<uintptr_t>(h) % 16 == 0;
+  output_transform_kernel<N, M><<<grid, kThreads, smem, stream>>>(
+      h, scale, cinvt, apt, out, TC, changes_base, vec_in);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -332,22 +508,17 @@ extern "C" int wino_output_transform(const int32_t* h, const float* scale,
                                      cudaStream_t stream) {
   const long long TC = T * C;
   if (TC == 0) return static_cast<int>(cudaGetLastError());
-  const dim3 grid(blocks_for(TC));
   switch (n) {
     case 4:
-      output_transform_kernel<4, 2><<<grid, kThreads, 0, stream>>>(
-          h, scale, cinvt, apt, out, TC, changes_base);
-      break;
+      return launch_output<4, 2>(h, scale, cinvt, apt, out, TC, changes_base,
+                                 stream);
     case 6:
-      output_transform_kernel<6, 4><<<grid, kThreads, 0, stream>>>(
-          h, scale, cinvt, apt, out, TC, changes_base);
-      break;
+      return launch_output<6, 4>(h, scale, cinvt, apt, out, TC, changes_base,
+                                 stream);
     case 8:
-      output_transform_kernel<8, 6><<<grid, kThreads, 0, stream>>>(
-          h, scale, cinvt, apt, out, TC, changes_base);
-      break;
+      return launch_output<8, 6>(h, scale, cinvt, apt, out, TC, changes_base,
+                                 stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -14,6 +14,11 @@ from repro_torch.checkpoint import checkpoint as tckpt
 from repro_torch.conv import ConvEngine, ConvPolicy, PackedWinogradWeights
 from repro_torch.core import winograd as tw
 
+# One intra-op thread: under pytest-xdist the workers share the cores,
+# and torch's OpenMP pool in each would oversubscribe them (ROADMAP,
+# Queue C).
+torch.set_num_threads(1)
+
 LAYERS = {"stem": (3, 8), "s0b0.conv1": (8, 8)}
 
 

@@ -21,6 +21,11 @@ from repro_torch.core import quantization as tq
 from repro_torch.core import winograd as tw
 from repro_torch.device import resolve_device
 
+# One intra-op thread: under pytest-xdist the workers share the cores,
+# and torch's OpenMP pool in each would oversubscribe them (ROADMAP,
+# Queue C).
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
 

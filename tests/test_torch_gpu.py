@@ -1,10 +1,10 @@
 """On-card tests of the port's CUDA kernels against their plain PyTorch
 versions (``pytest -m gpu``). Without a card every test here skips.
 
-Integer outputs (Xq, the int32 GEMM, the requant plane) must match the
-plain versions bit for bit. The fp32 outputs too: kernel and plain
-version run the same IEEE operations in the same order (no FMA
-contraction), so the stated bound, 1e-6 of the output's max, is slack.
+Every output must match its plain version bit for bit: the integer
+ones (Xq, the int32 GEMM, the requant plane) and the fp32 ones too, since
+kernel and plain version run the same IEEE operations in the same order
+(no FMA contraction). K4 must equal K2 → K3 (fused == staged kernels).
 """
 from unittest import mock
 
@@ -30,8 +30,6 @@ from repro_torch.launch import infer_resnet, train_resnet_qat
 
 pytestmark = pytest.mark.gpu
 
-FP32_REL = 1e-6
-
 CASES = [(m, base, bits) for m in (2, 4, 6)
          for base in ("canonical", "legendre") for bits in (None, 8, 9)]
 
@@ -42,8 +40,9 @@ def _card():
     return torch.device("cuda")
 
 
-def _rel(a, b):
-    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+def _bits(y):
+    """An fp32 tensor's bits, so that +0 and -0 differ."""
+    return y.cpu().view(torch.int32)
 
 
 def _inputs(m, base, seed, T=37, cin=19, cout=45):
@@ -97,7 +96,7 @@ def test_kernels_match_plain_versions_on_card(m, base, bits):
                            ops_dev["APT"], m=m, changes_base=cb)
     want = output_transform_plain(h, s, ops_cpu["CinvT"], ops_cpu["APT"],
                                   m=m, changes_base=cb)
-    assert _rel(got.cpu(), want) <= FP32_REL
+    assert torch.equal(_bits(got), _bits(want))
 
     got = fused_gemm_output(xq.to(dev), uq.to(dev), deq.to(dev), rq.to(dev),
                             ops_dev["CinvT"], ops_dev["APT"], m=m,
@@ -105,14 +104,14 @@ def test_kernels_match_plain_versions_on_card(m, base, bits):
     want = fused_gemm_output_plain(xq, uq, deq, rq, ops_cpu["CinvT"],
                                    ops_cpu["APT"], m=m, requant_bits=bits,
                                    changes_base=cb)
-    assert _rel(got.cpu(), want) <= FP32_REL
+    assert torch.equal(_bits(got), _bits(want))
     # fused == staged kernels (K2 epilogue → K3 with rq) on the card
     if bits is not None:
         H = wino_gemm(xq.to(dev), uq.to(dev), requant_bits=bits,
                       deq=deq.to(dev), rq=rq.to(dev))
         staged = output_transform(H, rq.to(dev), ops_dev["CinvT"],
                                   ops_dev["APT"], m=m, changes_base=cb)
-        assert _rel(got, staged) <= FP32_REL
+        assert torch.equal(_bits(got), _bits(staged))
 
 
 # K4 at the kernel's edges: (m, base, requant bits, T, Cin, Cout). Cin = 3
@@ -199,6 +198,125 @@ def test_wino_gemm_is_bitwise_at_its_edges_on_card(m, base, bits, T, cin,
                             rq=None if bits is None else rq.to(dev))
         want = wino_gemm_plain(xq, uq, bits, deq, rq)
         assert torch.equal(got.cpu(), want), pb
+
+
+# K3 at its edges, the cases of chip_smoke.py's phase 3: (m, base, H, T,
+# C), H on the 8- or 9-bit grid or (None) raw accumulators past 2^24.
+# T * C off a multiple of 4 sends K3 to its 4-byte staging; off a
+# multiple of 16 and of the chunk (128 windows) leaves a ragged store
+# tail; n = 4, 6, 8, the base on and off.
+K3_EDGE_CASES = [
+    (4, "legendre", 9, 1000, 45),
+    (4, "legendre", 8, 301, 45),
+    (4, "canonical", None, 777, 19),
+    (4, "legendre", None, 1000, 64),
+    (2, "legendre", 9, 777, 19),
+    (2, "canonical", 8, 1000, 3),
+    (6, "legendre", 9, 301, 64),
+    (6, "legendre", 8, 100, 45),
+    (6, "canonical", None, 1000, 19),
+]
+
+
+def k3_edge_inputs(m, base, bits, T, C):
+    """H (n², T, C) int32 and its per-position scales for one K3 edge
+    case, made with numpy: grid values with rq-sized scales, or raw
+    accumulators past 2^24 with deq-sized ones. Either way H·s is O(0.1)
+    to O(1), as in a served layer."""
+    rng = np.random.default_rng(T * C + m + (bits or 0))
+    P = (m + 2) ** 2
+    if bits is None:
+        h = rng.integers(-2 ** 30, 2 ** 30, (P, T, C), dtype=np.int32)
+        s = rng.uniform(5e-11, 2e-10, (P, 1))
+    else:
+        qm = 2 ** (bits - 1) - 1
+        h = rng.integers(-qm, qm + 1, (P, T, C), dtype=np.int32)
+        s = rng.uniform(1e-3, 1e-2, (P, 1))
+    return h, s.astype(np.float32)
+
+
+def test_output_transform_is_bitwise_at_its_edges_on_card():
+    """Every K3 edge case, each at an aligned H and at a view one int32
+    into its storage (the 4-byte staging at any T * C). The cases run in
+    one test: see ROADMAP Queue C on the suite's count of tests."""
+    dev = _card()
+    for m, base, bits, T, C in K3_EDGE_CASES:
+        case = (m, base, bits, T, C)
+        spec = WinogradSpec(m=m, r=3, base=base)
+        h, s = (torch.from_numpy(a)
+                for a in k3_edge_inputs(m, base, bits, T, C))
+        if bits is None:
+            assert int(h.abs().max()) > 2 ** 24, case
+        o_cpu = ops._operands(spec, torch.device("cpu"))
+        o_dev = ops._operands(spec, dev)
+        cb = spec.changes_base
+        got = output_transform(h.to(dev), s.to(dev), o_dev["CinvT"],
+                               o_dev["APT"], m=m, changes_base=cb)
+        want = output_transform_plain(h, s, o_cpu["CinvT"], o_cpu["APT"],
+                                      m=m, changes_base=cb)
+        assert torch.equal(_bits(got), _bits(want)), case
+        flat = torch.zeros(1 + h.numel(), dtype=torch.int32, device=dev)
+        h_off = flat[1:].view(h.shape)
+        h_off.copy_(h.to(dev))
+        got = output_transform(h_off, s.to(dev), o_dev["CinvT"],
+                               o_dev["APT"], m=m, changes_base=cb)
+        assert torch.equal(_bits(got), _bits(want)), ("offset view", case)
+
+
+# A C^-T with the Legendre base's zeros, so that K3 leaves its zero terms
+# out, and an A^T under which a window of zeros comes out +0 in the plain
+# order but -0 from the nonzero terms alone.
+SIGNED_ZERO_CINVT = [[-1.0, 0.0, 0.0, 0.0], [0.0, 0.5, 0.0, 0.0],
+                     [-1.0, 0.0, 1.0, 0.0], [0.0, -2.0, 0.0, -1.0]]
+SIGNED_ZERO_APT = [[0.0, 1.0, 0.0, 2.0], [-1.0, -0.0, -0.0, -1.0]]
+
+
+def signed_zero_inputs():
+    """(H, scales, C^-T, A^T) with every other window all zero."""
+    cinvt = torch.tensor(SIGNED_ZERO_CINVT)
+    apt = torch.tensor(SIGNED_ZERO_APT)
+    n = cinvt.shape[0]
+    rng = np.random.default_rng(n)
+    h = torch.from_numpy(rng.integers(-3, 4, (n * n, 40, 7),
+                                      dtype=np.int32))
+    h[:, ::2] = 0
+    return h, torch.full((n * n, 1), 0.5), cinvt, apt
+
+
+def test_output_transform_keeps_the_sign_of_zero_outputs_on_card():
+    """Where leaving out zero terms flips the sign of a zero output, K3
+    must redo the window in the plain order, with the base change off and
+    on."""
+    dev = _card()
+    h, s, cinvt, apt = signed_zero_inputs()
+    m = apt.shape[0]
+    for changes_base in (False, True):
+        got = output_transform(h.to(dev), s.to(dev), cinvt.to(dev),
+                               apt.to(dev), m=m, changes_base=changes_base)
+        want = output_transform_plain(h, s, cinvt, apt, m=m,
+                                      changes_base=changes_base)
+        assert int((want == 0).sum()) > 0, changes_base
+        assert torch.equal(_bits(got), _bits(want)), changes_base
+
+
+def test_output_transform_takes_the_full_order_without_legendre_zeros_on_card(
+):
+    """A C^-T without the Legendre base's zeros (flex makes the matrices
+    learnable): K3 must leave no term out, at n = 4 and 6."""
+    dev = _card()
+    for n in (4, 6):
+        m = n - 2
+        rng = np.random.default_rng(10 + n)
+        cinvt = torch.from_numpy(rng.normal(size=(n, n)).astype(np.float32))
+        apt = torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32))
+        h = torch.from_numpy(rng.integers(-255, 256, (n * n, 300, 9),
+                                          dtype=np.int32))
+        s = torch.from_numpy(rng.uniform(1e-3, 1e-2, (n * n, 1))
+                             .astype(np.float32))
+        got = output_transform(h.to(dev), s.to(dev), cinvt.to(dev),
+                               apt.to(dev), m=m)
+        want = output_transform_plain(h, s, cinvt, apt, m=m)
+        assert torch.equal(_bits(got), _bits(want)), n
 
 
 @pytest.mark.parametrize("P,M,K,N", [(16, 64, 1100, 40), (36, 37, 1200, 45)])

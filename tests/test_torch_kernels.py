@@ -24,6 +24,12 @@ from repro_torch.kernels import fused_serve as fs
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import wino_gemm as wg
 from repro_torch.kernels import wino_transform as wt
+from test_torch_gpu import K3_EDGE_CASES, k3_edge_inputs
+
+# One intra-op thread: under pytest-xdist the workers share the cores,
+# and torch's OpenMP pool in each would oversubscribe them (ROADMAP,
+# Queue C).
+torch.set_num_threads(1)
 
 SPECS = [(m, base) for m in (2, 4, 6) for base in ("canonical", "legendre")]
 CASES = [(m, base, bits) for m, base in SPECS for bits in (None, 8, 9)]
@@ -131,6 +137,46 @@ def test_output_transform_plain_matches_jax_reference(m, base):
     y_or = tref.output_transform_ref(_t(h), _t(s), _t(mats["CinvT"]),
                                      _t(mats["APT"]), m, cb)
     np.testing.assert_allclose(y_or.numpy(), y_ref, rtol=1e-4, atol=1e-4)
+
+
+def _output_transform_f64(h, s, mats, m, changes_base):
+    """The output transform of the same H and scales in float64."""
+    P, T, C = h.shape
+    n = m + 2
+    x = h.astype(np.float64) * s.astype(np.float64)[:, :, None]
+    x = np.moveaxis(x, 0, -1).reshape(T, C, n, n)
+    sw = "ij,...jk,lk->...il"
+    if changes_base:
+        c = mats["CinvT"].astype(np.float64)
+        x = np.einsum(sw, c, x, c)
+    a = mats["APT"].astype(np.float64)
+    return np.einsum(sw, a, x, a)
+
+
+@pytest.mark.parametrize("m,base,bits,T,C", K3_EDGE_CASES)
+def test_output_transform_plain_matches_jax_reference_at_k3_edges(
+        m, base, bits, T, C):
+    """K3's edge shapes (T·C off 4, 16 and the chunk; n = 4/6/8; H on the
+    8/9-bit grids or raw past 2^24), plain version against the JAX
+    oracle. At F(6,3) Legendre the transform cancels terms ~10⁴ times its
+    outputs (ROADMAP Queue C): there the port may be no farther from the
+    float64 value than twice the oracle's own distance."""
+    h, s = k3_edge_inputs(m, base, bits, T, C)
+    mats = _mats(m, base)
+    cb = base != "canonical"
+    y_ref = np.asarray(kref.output_transform_ref(
+        jnp.asarray(h), jnp.asarray(s), mats["CinvT"], mats["APT"], m, cb))
+    y = wt.output_transform(_t(h), _t(s), _t(mats["CinvT"]),
+                            _t(mats["APT"]), m=m, changes_base=cb).numpy()
+    assert y.shape == (T, C, m, m)
+    if m == 6 and cb:
+        y64 = _output_transform_f64(h, s, mats, m, cb)
+        err, err_ref = np.abs(y - y64).max(), np.abs(y_ref - y64).max()
+        print(f"F(6,3) distance to float64: port {err:.3g}, JAX oracle "
+              f"{err_ref:.3g}, max |y| {np.abs(y64).max():.3g}")
+        assert err <= 2 * err_ref + 1e-6
+    else:
+        np.testing.assert_allclose(y, y_ref, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("m,base,bits", CASES)

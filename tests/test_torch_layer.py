@@ -29,6 +29,11 @@ from repro_torch.core import winograd as tw
 from repro_torch.kernels import ops as tops
 from test_torch_kernels import assert_xq_tier
 
+# One intra-op thread: under pytest-xdist the workers share the cores,
+# and torch's OpenMP pool in each would oversubscribe them (ROADMAP,
+# Queue C).
+torch.set_num_threads(1)
+
 CASES = [(m, base, bits) for m in (2, 4, 6)
          for base in ("canonical", "legendre") for bits in (None, 8, 9)]
 

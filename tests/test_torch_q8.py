@@ -36,6 +36,11 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.q8_matmul import q8_matmul, q8_matmul_plain
 
+# One intra-op thread: under pytest-xdist the workers share the cores,
+# and torch's OpenMP pool in each would oversubscribe them (ROADMAP,
+# Queue C).
+torch.set_num_threads(1)
+
 
 def _fq_inputs(seed, shape=(6, 5, 4, 3)):
     """Normal values and a cotangent of the same shape."""

@@ -28,6 +28,11 @@ from repro_torch.launch import infer_resnet
 from repro_torch.models import resnet as RN
 from repro_torch.core.winograd import flex_init
 
+# One intra-op thread: under pytest-xdist the workers share the cores,
+# and torch's OpenMP pool in each would oversubscribe them (ROADMAP,
+# Queue C).
+torch.set_num_threads(1)
+
 WIDTH, BATCH, HW = 0.125, 2, 16
 
 

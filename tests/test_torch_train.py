@@ -68,6 +68,11 @@ from repro_torch.launch import train_resnet_qat
 from repro_torch.models import resnet as RN
 from repro_torch.optim import optimizer as topt
 
+# One intra-op thread: under pytest-xdist the workers share the cores,
+# and torch's OpenMP pool in each would oversubscribe them (ROADMAP,
+# Queue C).
+torch.set_num_threads(1)
+
 LR, WD = 3e-3, 1e-4
 CONV_CASES = [(quant, flex, m, base) for quant in ("fp", "fakequant")
               for flex in (False, True) for m in (2, 4)
@@ -262,7 +267,7 @@ def jax_jobs(compile_pool):
     compile) first, then the fake-quant network on the port's conv
     outputs, the conv groups (the fp specs in one compile, each
     fake-quant spec in its own with the algebraic simplifier off), and
-    AdamW on the network's parameters. The port's side runs on one
+    AdamW on the network's parameters. The port's side runs on its one
     thread meanwhile, leaving the other cores to the compiles."""
     params, state, batch = net = _resnet_inputs()
     jcfg = _resnet_cfgs("winograd_fp")[0]
@@ -272,13 +277,8 @@ def jax_jobs(compile_pool):
             params, state, batch, jcfg)
     jobs = {"net": (net, compile_pool.submit(
         jax.jit(grad_step).lower(*net).compile))}
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        jobs["fq"] = _fakequant_step(*_resnet_cfgs("winograd_fakequant"),
-                                     *net, compile_pool)
-    finally:
-        torch.set_num_threads(threads)
+    jobs["fq"] = _fakequant_step(*_resnet_cfgs("winograd_fakequant"),
+                                 *net, compile_pool)
     groups = [("fp", SPECS, {})] + [("fakequant", [s], ALGSIMP_OFF)
                                     for s in SPECS]
     jobs["convs"] = [
@@ -543,8 +543,15 @@ def test_resnet_fake_quant_step_backward_chains_like_jax(resnet_step):
 
 
 def test_trainer_takes_fake_quant_steps_on_cpu():
-    out = train_resnet_qat.main(["--width", "0.125", "--batch", "2",
-                                 "--steps", "2", "--device", "cpu"])
+    """On several threads, where torch's CPU conv backward needs the NCHW
+    copy that ``direct_conv2d`` makes for the 1×1 stride-2 projections."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        out = train_resnet_qat.main(["--width", "0.125", "--batch", "2",
+                                     "--steps", "2", "--device", "cpu"])
+    finally:
+        torch.set_num_threads(threads)
     assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
     moved = out["param_change"]
     assert all(v > 0 for v in moved.values()), moved
