@@ -9,7 +9,13 @@ fails the run:
 
 1. device   — name, capability (9, 0), power limit, nvcc and torch CUDA;
 2. build    — compile every kernel under ``src/repro_torch/csrc`` with
-              nvcc (``-Xptxas -v`` printed; any spill fails) and time it;
+              nvcc and time it; every source not built by this run (its
+              library was cached) is compiled again into a temporary
+              directory, so that ``-Xptxas -v`` (printed) covers every
+              instantiation; any spill fails; every instantiation of the
+              loaded libraries is read back through the CUDA driver API
+              (``cuFuncGetAttribute``: registers, local bytes) and must
+              match that log;
               count the tensor-core MMA and dp4a instructions in the SASS
               of K2, K4 and K5 (``cuobjdump -sass``): every instantiation
               needs >= 1 MMA, and K2's no dp4a; log every kernel's
@@ -49,7 +55,22 @@ fails the run:
               256, F(4,3) Legendre, flex, 9-bit Hadamard, 10 steps: every
               loss finite, every parameter, the flex matrices and the
               BatchNorm running statistics changed; ms per step, images/s
-              and peak memory.
+              and peak memory;
+7. serve    — ``repro_torch.launch.serve`` at width 1.0 (F(4,3) Legendre,
+              9-bit Hadamard), buckets 1/8/64/256, max wait 5 ms, the
+              planner (tiles 2/4/6 × both bases × bits none/8/9, measured
+              at bucket 256) and autotune on, 4,096 Poisson requests at
+              4,000 requests/s: every request answered, 0 captures after
+              warm-up, sampled served rows bit for bit with the eager
+              forward of the same padded batch; a second, traced load of
+              2,048 requests for the device's busy share under load and
+              its time by kernel; launches read around it
+              (K1–K4 > 0; per capture and replays); and the padded-parity
+              check on the card: one int8 Winograd layer, a row served in
+              a zero-padded bucket bit for bit the row served alone.
+
+Phase 5's device-busy share is the union of the trace's device intervals
+over the traced window, so it cannot pass 100 %.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Details go
@@ -106,6 +127,11 @@ LLAMA_PROJ = [("q", 2048, 2048), ("k", 2048, 512), ("v", 2048, 512),
 Q8_SHAPES = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)]
 PREFILL_M, DECODE_M = 4 * 512, 8
 TRAIN_STEPS = 10
+# The serving phase: buckets, Poisson rate (about a fifth of the images/s
+# phase 5's fused forward reaches at B = 256) and requests.
+SERVE_BUCKETS = "1,8,64,256"
+SERVE_RATE = 4000
+SERVE_REQUESTS = 4096
 # Tensor-core MMA and dp4a instructions in SASS (mma.sync s8 -> IMMA,
 # wgmma -> *GMMA); shared-memory loads and fp32 multiplies
 SASS_MMA = ("IMMA", "HMMA", "IGMMA", "HGMMA", "QGMMA")
@@ -236,6 +262,94 @@ def sass_counts(lib: str) -> dict:
     return counts
 
 
+def ptxas_functions(log: str) -> dict:
+    """Per function of an ``-Xptxas -v`` log: registers, stack frame and
+    spill store/load bytes."""
+    out: dict = {}
+    fn = None
+    for line in log.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line or \
+                "Function properties for" in line:
+            fn = line.split("'")[1] if "'" in line else line.split()[-1]
+            out.setdefault(fn, {"registers": None, "stack": None,
+                                "spill_stores": None, "spill_loads": None})
+        elif fn is not None and "bytes stack frame" in line:
+            # "N bytes stack frame, S bytes spill stores, L bytes spill
+            # loads"
+            w = line.replace(",", "").split()
+            out[fn]["stack"] = int(w[0])
+            out[fn]["spill_stores"] = int(w[4])
+            out[fn]["spill_loads"] = int(w[8])
+        elif fn is not None and line.startswith("ptxas info") and \
+                "Used" in line and "registers" in line:
+            w = line.split("Used", 1)[1].split()
+            out[fn]["registers"] = int(w[0])
+    return out
+
+
+def fresh_build_logs(sources) -> dict:
+    """``-Xptxas -v`` logs of ``sources`` compiled again, with the flags
+    of ``_build``, into a temporary directory (one nvcc each, all
+    started together): what a cached library's build printed."""
+    from repro_torch.kernels import _build
+    logs = {}
+    with tempfile.TemporaryDirectory() as d:
+        procs = {n: subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+             str(Path(d) / f"lib{n}.so"), str(_build.CSRC / f"{n}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for n in sources}
+        for n, p in procs.items():
+            logs[n] = p.communicate()[0]
+            if p.returncode != 0:
+                fail(f"fresh build of {n}.cu failed:\n{logs[n]}")
+    return logs
+
+
+def cuda_func_attributes(lib: str) -> dict:
+    """Every kernel instantiation in a built library, as the CUDA driver
+    sees it (``cuFuncGetAttribute``): its registers and its local memory
+    bytes a thread, from the cubins the library holds (``cuobjdump
+    -xelf``), loaded with ``cuModuleLoadData``."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import _build
+    torch.zeros(1, device="cuda")           # the primary context, current
+    cuobjdump = str(Path(_build.nvcc_path()).with_name("cuobjdump"))
+    names = [ln.strip()[len("Function "):-1] for ln in subprocess.run(
+        [cuobjdump, "-res-usage", lib], capture_output=True, text=True,
+        check=True).stdout.splitlines()
+        if ln.strip().startswith("Function ") and ln.strip().endswith(":")]
+    cu = ctypes.CDLL("libcuda.so.1")
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as d:
+        subprocess.run([cuobjdump, "-xelf", "all", lib], cwd=d, check=True,
+                       capture_output=True)
+        for cubin in sorted(Path(d).glob("*.cubin")):
+            mod = ctypes.c_void_p()
+            rc = cu.cuModuleLoadData(ctypes.byref(mod), cubin.read_bytes())
+            if rc != 0:
+                fail(f"cuModuleLoadData({cubin.name}) returned {rc}")
+            for name in names:
+                fn = ctypes.c_void_p()
+                if cu.cuModuleGetFunction(ctypes.byref(fn), mod,
+                                          name.encode()) != 0:
+                    continue
+                regs, local = ctypes.c_int(), ctypes.c_int()
+                # CU_FUNC_ATTRIBUTE_NUM_REGS = 4, _LOCAL_SIZE_BYTES = 3
+                if cu.cuFuncGetAttribute(ctypes.byref(regs), 4, fn) or \
+                        cu.cuFuncGetAttribute(ctypes.byref(local), 3, fn):
+                    fail(f"cuFuncGetAttribute failed for {name}")
+                out[name] = {"registers": regs.value,
+                             "local_bytes": local.value}
+            cu.cuModuleUnload(mod)
+    missing = [n for n in names if n not in out]
+    if missing:
+        fail(f"{lib}: no cubin of the library holds {missing}")
+    return out
+
+
 def same_bits(a, b) -> bool:
     """Equal fp32 tensors bit for bit (+0 and -0 differ)."""
     import torch
@@ -285,6 +399,7 @@ def input_ops(n: int, changes_base: bool) -> int:
 
 
 def main() -> int:
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -301,6 +416,7 @@ def main() -> int:
     from repro_torch.kernels import wino_gemm as wg
     from repro_torch.kernels import wino_transform as wt
     from repro_torch.launch import infer_resnet, train_resnet_qat
+    from repro_torch.serving.metrics import device_busy
 
     report: dict = {}
     dev = torch.device("cuda")
@@ -328,8 +444,19 @@ def main() -> int:
     report["build_s"] = time.perf_counter() - t0
     log(f"built {built} in {report['build_s']:.1f}s ({len(_build.SOURCES)} "
         f"nvcc processes in parallel)")
-    spills = []
-    for src, text in _build.BUILD_LOG.items():
+    # A cached library printed its -Xptxas -v log in the run that built
+    # it: compile those sources again, so that every instantiation's
+    # registers and spills are read in this run.
+    cached = [n for n in _build.SOURCES if n not in built]
+    t0 = time.perf_counter()
+    ptxas_logs = dict(_build.BUILD_LOG)
+    ptxas_logs.update(fresh_build_logs(cached))
+    report["fresh_build_s"] = time.perf_counter() - t0
+    log(f"libraries built by an earlier run: {cached}; compiled again "
+        f"for their -Xptxas -v logs in {report['fresh_build_s']:.1f}s")
+    spills, by_fn = [], {}
+    for src in _build.SOURCES:
+        text = ptxas_logs[src]
         for line in text.splitlines():   # kernel, registers, smem, spills
             if any(w in line for w in ("entry function", "Used", "spill",
                                        "warning")):
@@ -337,8 +464,28 @@ def main() -> int:
             if "spill stores" in line and "0 bytes spill stores, 0 bytes " \
                     "spill loads" not in line:
                 spills.append(f"{src}: {line.strip()}")
+        by_fn.update(ptxas_functions(text))
     if spills:
         fail(f"register spills: {spills}")
+    # Every instantiation of the loaded libraries, read back through the
+    # CUDA driver API, must be one of the log's, with its registers and
+    # its stack frame as local memory: the log is the loaded code's.
+    attrs_by_src = report["cuda_func_attributes"] = {}
+    for src in _build.SOURCES:
+        attrs = cuda_func_attributes(str(_build._target(src)))
+        attrs_by_src[src] = attrs
+        for fn, a in attrs.items():
+            p = by_fn.get(fn)
+            log(f"  cuFuncGetAttribute {src} {fn[-60:]}: "
+                f"{a['registers']} registers, {a['local_bytes']} local "
+                f"bytes a thread")
+            if p is None or p["registers"] != a["registers"] or \
+                    p["stack"] != a["local_bytes"] or p["spill_stores"] or \
+                    p["spill_loads"]:
+                fail(f"{src} {fn}: cuFuncGetAttribute reads {a}, the "
+                     f"ptxas log {p}")
+    log(f"cuFuncGetAttribute of {sum(map(len, attrs_by_src.values()))} "
+        f"instantiations match their ptxas logs: no spill anywhere")
     # Every kernel's SASS counts are logged before any gate can fail the
     # run, so that this script, copied into an older checkout, still
     # prints that checkout's counts.
@@ -897,15 +1044,23 @@ def main() -> int:
     log(f"fused serving, width 1.0, B={BATCH}: {fwd_ms:.3f} ms per forward, "
         f"{report['images_per_s']:.0f} images/s")
     by_kernel = device_ms_by_kernel(prof)
-    busy_ms = sum(by_kernel.values())
+    busy_ms, window_ms = device_busy(prof)
     report["trace"] = {"device_ms_by_kernel": by_kernel,
-                       "device_busy_ms": busy_ms}
+                       "device_busy_ms": busy_ms,
+                       "device_ms_summed": sum(by_kernel.values()),
+                       "traced_window_ms": window_ms}
     if not by_kernel:
         log("trace: the profiler recorded no device time (not measured)")
     else:
-        log(f"trace of one fused forward: device busy {busy_ms:.3f} ms of "
-            f"{fwd_ms:.3f} ms event-timed forward "
-            f"({100 * busy_ms / fwd_ms:.1f}% busy); top kernels:")
+        share = busy_ms / window_ms
+        report["trace"]["busy_share"] = share
+        if not 0.0 < share <= 1.0:
+            fail(f"device-busy share {share} outside (0, 1]")
+        log(f"trace of one fused forward: device busy {busy_ms:.3f} ms "
+            f"(union of device intervals; their durations sum to "
+            f"{sum(by_kernel.values()):.3f} ms) of a {window_ms:.3f} ms "
+            f"traced window ({100 * share:.1f}% busy; event-timed forward "
+            f"{fwd_ms:.3f} ms); top kernels:")
         for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]:
             log(f"  {v:8.3f} ms  {k[:100]}")
 
@@ -937,19 +1092,124 @@ def main() -> int:
                                "--steps", "2", "--device", "cuda"])
         torch.cuda.synchronize()
     by_kernel = device_ms_by_kernel(prof, per=2)
-    busy_ms = sum(by_kernel.values())
+    busy_ms, window_ms = device_busy(prof)
     report["train_trace"] = {"device_ms_by_kernel_per_step": by_kernel,
-                             "device_busy_ms_per_step": busy_ms}
+                             "device_busy_ms_per_step": busy_ms / 2,
+                             "traced_window_ms": window_ms}
     if not by_kernel:
         log("train trace: the profiler recorded no device time "
             "(not measured)")
     else:
-        log(f"train trace: device busy {busy_ms:.2f} ms per step against "
-            f"{tr['step_ms']:.2f} ms per step "
-            f"({100 * busy_ms / tr['step_ms']:.1f}% busy); top kernels per "
-            f"step:")
+        log(f"train trace: device busy {busy_ms / 2:.2f} ms per step "
+            f"(union of device intervals) in a {window_ms:.2f} ms traced "
+            f"window of two steps and their set-up "
+            f"({100 * busy_ms / window_ms:.1f}% busy; {tr['step_ms']:.2f} "
+            f"ms per step untraced); top kernels per step:")
         for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]:
             log(f"  {v:8.3f} ms  {k[:100]}")
+
+    # 7. serve ---------------------------------------------------------------
+    torch.cuda.empty_cache()
+    from repro_torch.launch import serve
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    sv = serve.main(["--width", "1.0", "--buckets", SERVE_BUCKETS,
+                     "--max-wait-ms", "5", "--rate", str(SERVE_RATE),
+                     "--requests", str(SERVE_REQUESTS),
+                     "--solo-requests", "16", "--calib-steps", "2",
+                     "--calib-batch", str(BATCH), "--plan", "--plan-tiles",
+                     "2,4,6", "--plan-bases", "canonical,legendre",
+                     "--plan-bits", "none,8,9", "--autotune",
+                     "--check-batches", "2", "--trace-requests",
+                     str(SERVE_REQUESTS // 2), "--device", "cuda"])
+    torch.cuda.synchronize()
+    sv["wall_s_total"] = time.perf_counter() - t0
+    serve_launches = dict(_build.LAUNCHES)
+    sv["launches"] = serve_launches
+    replayed = {k: sum(per.get(k, 0) * sv["replays"][b]
+                       for b, per in sv["launches_per_capture"].items())
+                for k in SERVING}
+    sv["launches_replayed"] = replayed
+    report["serve"] = sv
+    plan = sv["plan"]
+    log(f"serve plan: {plan['describe']}; routes that differ from the "
+        f"baseline F(4,3)/legendre/9b: {plan['differs_from_baseline']}")
+    log(f"serve plan entries: {plan['entries']}")
+    log(f"serve tuned K4 tiles: {sv['tuned_tiles']}")
+    log(f"serve warm-up s per bucket (eager run + capture + replay): "
+        f"{sv['warmup_s']}")
+    log(f"serve-alone: {sv['solo_ms']:.3f} ms a request through bucket "
+        f"{sv['buckets'][-1]}, {sv['floor_ms']:.3f} ms through bucket "
+        f"{sv['buckets'][0]}")
+    log(f"serve load: {sv['requests']} Poisson requests at "
+        f"{sv['rate_rps']:.0f}/s → {sv['throughput_rps']:.1f}/s served, p50 "
+        f"{sv['p50_ms']:.3f} ms, p99 {sv['p99_ms']:.3f} ms, mean batch "
+        f"{sv['mean_batch']:.2f}, padding {100 * sv['padding_frac']:.1f}%, "
+        f"busy {100 * sv['busy_frac']:.1f}% (host clock), batches by bucket "
+        f"{sv['batches_by_bucket']}, answered {sv['answered']}, captures "
+        f"after warm-up {sv['compiles_after_warmup']}")
+    log(f"serve rows bit for bit with the eager forward, batches checked "
+        f"per bucket: {sv['rows_checked']}")
+    tr = sv["trace"]
+    log(f"serve traced load ({tr['requests']} more requests, profiler on): "
+        f"device busy {tr['device_busy_ms']:.3f} ms (union) of a "
+        f"{tr['window_ms']:.3f} ms window ({100 * tr['busy_share']:.1f}% "
+        f"busy, {100 - 100 * tr['busy_share']:.1f}% idle) over "
+        f"{tr['batches']} batches; device time by kernel:")
+    for k, v in tr["top_kernels_ms"].items():
+        log(f"  {v:8.3f} ms  {k[:100]}")
+    if not 0.0 < tr["busy_share"] <= 1.0:
+        fail(f"serve: device-busy share under load {tr['busy_share']}")
+    log(f"serve launches (Python side: calibration, planner, autotune, "
+        f"eager warm-up runs and captures): {serve_launches}; launches per "
+        f"capture {sv['launches_per_capture']}, replays {sv['replays']}, "
+        f"launches run by the replays {replayed}; {sv['wall_s_total']:.1f}s "
+        f"in all")
+    if sv["answered"] != SERVE_REQUESTS or sv["compiles_after_warmup"] != 0:
+        fail(f"serve: {sv['answered']} of {SERVE_REQUESTS} answered, "
+             f"{sv['compiles_after_warmup']} captures after warm-up")
+    if sorted(sv["rows_checked"]) != sorted(sv["buckets"]):
+        fail(f"serve: served rows checked only in buckets "
+             f"{sv['rows_checked']}")
+    for k in SERVING:
+        if serve_launches[k] <= 0:
+            fail(f"kernel {k} was not launched on the serving path")
+    if not replayed["input_transform"] or not replayed["fused_gemm_output"]:
+        fail(f"serve: the captured graphs hold no K1/K4 launch: {replayed}")
+    # padded parity on the card: one int8 Winograd layer, a row served in
+    # a zero-padded bucket bit for bit the same row served alone
+    from repro_torch.conv import ConvEngine, ConvPolicy
+    from repro_torch.serving import serve_padded
+    gen = torch.Generator().manual_seed(4)
+    for base in ("canonical", "legendre"):
+        eng1 = ConvEngine(WinogradSpec(m=4, r=3, base=base,
+                                       quant=QuantConfig(hadamard_bits=9)),
+                          ConvPolicy(backend="winograd_int8"), device=dev)
+        w1 = torch.randn((3, 3, 64, 64), generator=gen) * 0.1
+        xs = torch.randn((8, 32, 32, 64), generator=gen).numpy()
+        _build.reset_launches()
+        with torch.inference_mode():
+            eng1.prepare([("c", w1)])
+            with eng1.calibration():
+                eng1.conv2d(torch.from_numpy(xs).to(dev), None, layer="c")
+
+            def fwd1(x):
+                return eng1.conv2d(x, None, layer="c")
+            solo = [serve_padded(fwd1, xs[i:i + 1], 1, device=dev)[0]
+                    for i in range(8)]
+            for n in (1, 2, 3, 5, 8):
+                y = serve_padded(fwd1, xs[:n], 8, device=dev)
+                for i in range(n):
+                    if not np.array_equal(y[i].view(np.int32),
+                                          solo[i].view(np.int32)):
+                        fail(f"padded parity {base}: n={n} row {i} differs "
+                             f"from the row served alone")
+        if not _build.LAUNCHES["fused_gemm_output"]:
+            fail("padded parity ran without K4")
+        log(f"padded parity on the card, F(4,3) {base} 9-bit, one layer "
+            f"(8, 32, 32, 64) → 64: rows in zero-padded buckets of 8 bit "
+            f"for bit the rows served alone, n = 1, 2, 3, 5, 8 "
+            f"(launches {dict(_build.LAUNCHES)})")
 
     kernels = []
     for k, (src, replaces) in TPU_KERNELS.items():

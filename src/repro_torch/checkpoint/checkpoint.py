@@ -6,20 +6,23 @@ Leaves are keyed by their path of dict keys joined with ``/`` (the JAX
 package's ``tree_flatten_with_path`` keys), so a state written by either
 package restores through the other. bfloat16 leaves ride as uint16 with
 their dtype in the manifest, as there. Retention keeps the newest K
-complete checkpoints.
+complete checkpoints. ``peek_leaves`` reads leaves without a template
+(the serving plan is recovered that way), and ``Checkpointer`` writes in
+a background thread.
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
+import threading
 import time
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
-__all__ = ["save", "restore", "latest_step"]
+__all__ = ["save", "restore", "latest_step", "peek_leaves", "Checkpointer"]
 
 _SEP = "/"
 
@@ -50,6 +53,11 @@ def _to_numpy(leaf) -> tuple[np.ndarray, str]:
     else:
         arr = np.asarray(leaf)
     return arr, arr.dtype.name
+
+
+def _bf16_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A bfloat16 leaf stored as uint16 → a bfloat16 tensor."""
+    return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
 
 
 def save(directory: str, step: int, tree: Any, *, keep: int = 3) -> str:
@@ -126,7 +134,7 @@ def restore(directory: str, tree_like: Any,
                     f"from the one this checkpoint was written with")
             arr = data[key]
             if dtypes.get(key) == "bfloat16":
-                t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+                t = _bf16_tensor(arr)
             else:
                 t = torch.from_numpy(np.ascontiguousarray(arr))
             dtype = (like.dtype if isinstance(like, torch.Tensor)
@@ -134,3 +142,80 @@ def restore(directory: str, tree_like: Any,
             return t.to(dtype)
         tree = _unflatten_like(tree_like, leaf)
     return tree, step
+
+
+def peek_leaves(directory: str, step: Optional[int] = None,
+                prefix: str = "") -> dict[str, Any]:
+    """A checkpoint's stored leaves without a restore template:
+    ``{slash-joined path: leaf}`` for every leaf whose path starts with
+    ``prefix`` (empty: all). A state group that describes itself, such as
+    the serving plan (``conv.planner.Plan.from_checkpoint``), is read
+    this way before any engine exists to give a template. An absent
+    group gives ``{}``. Leaves are numpy arrays, except that bfloat16
+    leaves (which numpy lacks) are re-viewed through the manifest into
+    bfloat16 CPU tensors, as ``restore`` does."""
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no complete checkpoint in {directory}")
+    base = os.path.join(directory, f"step_{step:08d}")
+    with open(os.path.join(base, "MANIFEST.json")) as f:
+        dtypes = json.load(f).get("dtypes", {})
+    out = {}
+    with np.load(os.path.join(base, "arrays.npz")) as data:
+        for key in data.files:
+            if not key.startswith(prefix):
+                continue
+            arr = data[key]
+            out[key] = (_bf16_tensor(arr) if dtypes.get(key) == "bfloat16"
+                        else arr)
+    return out
+
+
+class Checkpointer:
+    """Checkpoints written in a background thread, one in flight: the
+    device → host copy runs in the caller's thread (so the caller may go
+    on changing its tensors), the file write in the thread. A failed
+    write raises from the next ``wait`` (``save_async``/``save_sync``
+    wait first)."""
+
+    def __init__(self, directory: str, keep: int = 3):
+        self.directory = directory
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def save_async(self, step: int, tree: Any):
+        self.wait()
+        host = _host_tree(tree)
+        self._thread = threading.Thread(target=self._write,
+                                        args=(step, host), daemon=True)
+        self._thread.start()
+
+    def _write(self, step: int, host: Any):
+        try:
+            save(self.directory, step, host, keep=self.keep)
+        except BaseException as e:      # re-raised by wait()
+            self._error = e
+
+    def save_sync(self, step: int, tree: Any):
+        self.wait()
+        save(self.directory, step, _host_tree(tree), keep=self.keep)
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+        self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+
+def _host_tree(tree: Any) -> Any:
+    """A copy of ``tree`` with every tensor leaf on the host (a copy even
+    where the leaf is already there: the caller may change it after)."""
+    if isinstance(tree, dict):
+        return {k: _host_tree(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    return np.array(tree)

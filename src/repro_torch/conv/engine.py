@@ -35,17 +35,35 @@ Lifecycle (int8 serving):
 A layer re-packed after a weight update keeps its ``in_scales`` but
 drops ``hadamard_amax`` (weight-dependent) and serves with dynamic
 requant until recalibrated.
+
+Around the lifecycle:
+
+* ``certify=`` gates each int8 layer's ``(spec, base, hadamard_bits,
+  Cin)`` at pack time with the exact range certifier
+  (``analysis.ranges``);
+* ``autotune=True`` times K4's block tiles per layer shape at the end of
+  calibration (``conv.autotune``) and keeps each winner in the packed
+  state, so it rides the checkpoint;
+* ``plan=`` (a ``conv.planner.Plan``) routes each planned layer by its
+  own measured entry, possibly another F(m, 3), base and Hadamard width
+  per layer; the plan rides the checkpoint as ``plan/<layer>`` leaves;
+* ``warmup`` runs the serving forward once per serving geometry
+  (capturing one CUDA graph each, ``serving.graphs``), so the first
+  request of a registered shape builds and captures nothing.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
+import warnings
 from typing import Iterable, Optional
 
 import torch
 
 from repro_torch.conv.packing import (PackedWinogradWeights, merge_abs_max,
-                                      pack_weights, scales_from_abs_max)
+                                      pack_weights, scales_from_abs_max,
+                                      tile_leaf)
 from repro_torch.conv.policy import ConvPolicy
 from repro_torch.core.quantization import QuantConfig
 from repro_torch.core.winograd import (WinogradSpec, direct_conv2d,
@@ -76,7 +94,11 @@ class ConvEngine:
                  padding: str = "same",
                  hadamard_bits: "Optional[int] | str" = "from_spec",
                  fused: bool = True,
-                 device=None):
+                 device=None,
+                 autotune: bool = False,
+                 autotune_opts: Optional[dict] = None,
+                 certify: str = "warn",
+                 plan: "Optional[object]" = None):
         """``hadamard_bits``: the 8/9-bit Hadamard requant stage; the
         default mirrors ``spec.quant.hadamard_bits``, an int overrides,
         None disables.
@@ -87,7 +109,30 @@ class ConvEngine:
 
         ``device``: where the packed state lives and the kernels run —
         ``cuda`` unless the caller asks for another; without a card, a
-        CUDA engine raises here."""
+        CUDA engine raises here.
+
+        ``autotune``: at the end of calibration, time K4's block tiles
+        once per distinct (spec, tile geometry) and keep each layer's
+        winner in its packed state (``conv.autotune``); serving then
+        never tunes. ``autotune_opts`` goes to ``autotune_blocks``
+        (``iters``, ``warmup``, ``max_candidates``). The output is the
+        same bits at every tile.
+
+        ``certify``: the pack-time range gate. Each int8 layer's
+        ``(spec, base, hadamard_bits, Cin)`` is proved int32-safe and
+        Hadamard-faithful before its weights are packed: ``"warn"``
+        (default) warns on a config it cannot prove, ``"error"`` raises,
+        ``"off"`` skips the check. It gates the unplanned layers only: a
+        planned layer is always gated and raises (the planner emits
+        proved configs only, so a refused entry is corrupted state).
+
+        ``plan``: a ``conv.planner.Plan``. A planned layer ignores the
+        policy: ``direct`` serves direct, ``winograd_int8`` packs and
+        serves with the entry's own ``(m, r, base, hadamard_bits)``; the
+        engine-wide spec covers the unplanned layers. An entry outside
+        its Winograd regime raises. The plan rides ``export_state`` /
+        ``state_template`` / ``import_state`` as ``plan/<layer>``
+        leaves."""
         if spec is None:
             policy = policy or ConvPolicy(backend="direct",
                                           fallback="direct")
@@ -107,21 +152,93 @@ class ConvEngine:
         self.hadamard_bits = hadamard_bits
         self.fused = fused
         self.device = resolve_device(device)
+        if certify not in ("off", "warn", "error"):
+            raise ValueError(f"certify must be 'off', 'warn' or 'error', "
+                             f"got {certify!r}")
+        self.certify = certify
+        self.plan = plan
+        self.autotune = autotune
+        self.autotune_opts = dict(autotune_opts or {})
         self.packed: dict[str, PackedWinogradWeights] = {}
         self._calibrating = False
         self._amax: dict[str, torch.Tensor] = {}     # input-domain running max
         self._amax_h: dict[str, torch.Tensor] = {}   # Hadamard-product max
         self._scales: dict[str, torch.Tensor] = {}   # finalized calibrations
         self._h_amax_final: dict[str, torch.Tensor] = {}
+        # (T, Cin, Cout) tile geometry each layer calibrated at: the
+        # shape the tile autotuner searches.
+        self._tile_geom: dict[str, tuple] = {}
         # The packed weights each calibration observed: the Hadamard
         # abs-max may only reattach to a later prepare() of the same
         # weights.
         self._calib_uq: dict[str, tuple] = {}
+        # The serving callable warmup() defaults to (set by
+        # models.resnet.make_engine(warmup=...)).
+        self.serve_fn = None
+
+    # -- warmup -------------------------------------------------------------
+
+    def warmup(self, geometries: Iterable[tuple],
+               forward=None) -> dict[tuple, float]:
+        """Run the serving forward once per serving geometry.
+
+        ``geometries``: the input shapes (e.g. ``(batch, 32, 32, 3)``)
+        the online loop will dispatch. ``forward``: the serving callable,
+        by default ``self.serve_fn`` (``models.resnet.serving_forward``:
+        the first call of each shape runs eagerly, building any kernel
+        and operand table, then captures the shape's CUDA graph), so the
+        build and capture storm happens here and serving captures
+        nothing. Warm up once the engine holds its final serving state.
+        Returns {shape: seconds} per geometry."""
+        forward = forward if forward is not None else self.serve_fn
+        if forward is None:
+            raise ValueError("warmup needs a serving callable: pass "
+                             "forward= or set engine.serve_fn")
+        times = {}
+        for g in geometries:
+            g = tuple(int(d) for d in g)
+            t0 = time.perf_counter()
+            forward(torch.zeros(g, device=self.device))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            times[g] = time.perf_counter() - t0  # lint: waive=unsynced-timing
+        return times
 
     # -- dispatch -----------------------------------------------------------
 
+    def _plan_entry(self, layer: str):
+        """The layer's PlanEntry, or None (unplanned: the policy)."""
+        return self.plan.get(layer) if self.plan is not None else None
+
+    def _layer_spec(self, layer: str) -> Optional[WinogradSpec]:
+        """The spec serving this layer: its plan entry's own where it is
+        planned Winograd, else the engine-wide spec."""
+        e = self._plan_entry(layer)
+        return e.spec() if e is not None and e.is_winograd else self.spec
+
+    def _layer_hbits(self, layer: str) -> Optional[int]:
+        """The Hadamard requant width serving this layer."""
+        e = self._plan_entry(layer)
+        return (e.hadamard_bits if e is not None and e.is_winograd
+                else self.hadamard_bits)
+
     def backend_for(self, layer: str, *, kernel_size: int, stride: int,
                     in_channels: Optional[int] = None) -> str:
+        e = self._plan_entry(layer)
+        if e is not None:
+            # A plan wins over the policy. Its entries are made inside
+            # the Winograd regime only, so one outside it is a plan of
+            # another model: refuse rather than serve an unmeasured
+            # config.
+            if not e.is_winograd:
+                return "direct"
+            if stride != 1 or kernel_size != e.r:
+                raise ValueError(
+                    f"plan routes layer {layer!r} to {e.describe()} but "
+                    f"the layer is outside that Winograd regime (kernel "
+                    f"{kernel_size}, stride {stride}) — the plan does "
+                    f"not match this model; re-plan")
+            return "winograd_int8"
         r = self.spec.r if self.spec is not None else None
         m = self.spec.m if self.spec is not None else None
         return self.policy.backend_for(layer, kernel_size=kernel_size,
@@ -144,7 +261,8 @@ class ConvEngine:
         """
         pad = padding or self.padding
         pk = self.packed.get(layer)
-        spec = self.spec
+        spec = self._layer_spec(layer)
+        hbits = self._layer_hbits(layer)
         if w is None:
             if pk is None or spec is None:
                 raise ValueError(f"layer {layer!r}: no weights and no "
@@ -165,14 +283,13 @@ class ConvEngine:
             return winograd_conv2d(x, w, self.fp_spec, mats=self.mats,
                                    flex=flex, padding=pad)
         if backend == "winograd_fakequant":
-            return winograd_conv2d(x, w, spec, mats=self.mats, flex=flex,
-                                   padding=pad)
+            return winograd_conv2d(x, w, self.spec, mats=self.mats,
+                                   flex=flex, padding=pad)
         if flex is not None:
             raise ValueError(
                 "the winograd_int8 backend packs analytic transform "
                 "matrices; flex-trained transforms are not supported — "
                 "serve flex models via winograd_fakequant/winograd_fp")
-        hbits = self.hadamard_bits
         if self._calibrating:
             return self._calibrate_conv(x, w, pk, layer, pad, spec, hbits)
         if pk is not None:
@@ -182,14 +299,15 @@ class ConvEngine:
                 u_q=pk.u_q, w_scales=pk.w_scales,
                 hadamard_bits=hbits,
                 h_amax=pk.hadamard_amax if pk.calibrated else None,
-                fused=self.fused)
+                fused=self.fused, tile=pk.tile)
         return winograd_conv2d_int8(x, w, spec, pad, hadamard_bits=hbits,
                                     fused=self.fused)
 
     def _calibrate_conv(self, x, w, pk, layer, pad, spec, hbits):
         """One int8 conv under calibration: extract tiles once, record
         input-domain and Hadamard-product maxima, execute with this
-        batch's statistics (bit-identical to the dynamic derivation)."""
+        batch's statistics (bit-identical to the dynamic derivation).
+        ``spec``/``hbits`` are the layer's own (plan-resolved)."""
         if pk is not None:
             u_q, w_scales = pk.u_q, pk.w_scales
         else:
@@ -199,6 +317,8 @@ class ConvEngine:
         amax = _tiles_abs_max(tiles, spec)
         self._amax[layer] = merge_abs_max(self._amax.get(layer), amax)
         self._calib_uq[layer] = (u_q, w_scales)
+        self._tile_geom[layer] = (int(tiles.shape[0]), int(u_q.shape[1]),
+                                  int(u_q.shape[2]))
         scales = scales_from_abs_max(amax)
         if hbits is None:
             return execute_int8(tiles, u_q, w_scales, scales, spec=spec,
@@ -211,17 +331,54 @@ class ConvEngine:
 
     # -- prepare / calibrate ------------------------------------------------
 
+    def _certify_layer(self, layer: str, *, cin: int):
+        """The pack-time range gate (see ``certify`` in ``__init__``): a
+        planned layer is gated always and raises; an unplanned one
+        follows the knob."""
+        from repro_torch.analysis.ranges import certify_config
+        e = self._plan_entry(layer)
+        if e is not None and e.is_winograd:
+            rep = certify_config(e.m, e.r, e.base, e.hadamard_bits, cin)
+            if rep.proved:
+                return
+            raise ValueError(
+                f"plan contradicts the range certifier for layer "
+                f"{layer!r}: {e.describe()} at Cin={cin} is "
+                f"{rep.summary()} — the planner only emits proved "
+                f"configs (conv.planner.candidate_entries), so this plan "
+                f"is corrupted or belongs to another model; re-plan "
+                f"instead of overriding")
+        if self.certify == "off":
+            return
+        rep = certify_config(self.spec.m, self.spec.r, self.spec.base,
+                             self.hadamard_bits, cin)
+        if rep.proved:
+            return
+        acc = rep.stage("gemm_accumulator")
+        why = ("overflows int32" if not rep.int32_safe else
+               "exceeds the fp32-exact limit; the Hadamard requant cast "
+               "can round")
+        msg = (f"layer {layer!r}: {rep.summary()} — worst-case int32 "
+               f"accumulator {int(acc.bound)} ({acc.bits:.0f} bits) "
+               f"{why}. Reduce Cin, split the reduction, or pass "
+               f"certify='off' to override.")
+        if self.certify == "error":
+            raise ValueError(msg)
+        warnings.warn(msg, RuntimeWarning, stacklevel=3)
+
     def prepare_layer(self, layer: str, w: torch.Tensor, *,
                       stride: int = 1) -> bool:
-        """Pack one layer's weights if the policy routes it to int8.
+        """Pack one layer's weights if its routing sends it to int8.
         Returns True when the layer was packed (already-calibrated scales
         for the layer are preserved across a re-pack)."""
         backend = self.backend_for(layer, kernel_size=w.shape[0],
                                    stride=stride, in_channels=w.shape[2])
         if backend != "winograd_int8":
             return False
+        self._certify_layer(layer, cin=w.shape[2])
         old = self.packed.get(layer)
-        new = pack_weights(w.detach().to(self.device), self.spec)
+        new = pack_weights(w.detach().to(self.device),
+                           self._layer_spec(layer))
         if (old is not None and old.blocks is not None
                 and old.u_q.shape == new.u_q.shape):
             new = dataclasses.replace(new, blocks=old.blocks)
@@ -271,7 +428,8 @@ class ConvEngine:
     def end_calibration(self) -> dict[str, torch.Tensor]:
         """Finalize: running abs-maxima → per-layer in_scales (and the
         Hadamard abs-max when that stage is on). Scales are kept for
-        layers not packed yet, so calibrate-then-prepare works too."""
+        layers not packed yet, so calibrate-then-prepare works too. With
+        ``autotune=True`` this is also where K4's tiles are tuned."""
         self._calibrating = False
         scales = {}
         for layer, amax in self._amax.items():
@@ -289,7 +447,28 @@ class ConvEngine:
                     self.packed[layer], in_scales=s, hadamard_amax=hs)
         self._amax = {}
         self._amax_h = {}
+        if self.autotune:
+            self.autotune_packed()
         return scales
+
+    def autotune_packed(self) -> dict[str, tuple]:
+        """Tune K4's block tile for every packed layer whose tile
+        geometry calibration recorded, and keep each winner in its packed
+        state (``PackedWinogradWeights.blocks``). Same-shaped layers
+        share one timed search. Returns {layer: (bt, bc)}."""
+        from repro_torch.conv.autotune import autotune_blocks
+        tuned = {}
+        for layer, geom in self._tile_geom.items():
+            pk = self.packed.get(layer)
+            if pk is None:
+                continue
+            res = autotune_blocks(self._layer_spec(layer), *geom,
+                                  hadamard_bits=self._layer_hbits(layer),
+                                  device=self.device, **self.autotune_opts)
+            tuned[layer] = res.tile
+            self.packed[layer] = dataclasses.replace(
+                pk, blocks=tile_leaf(res.tile))
+        return tuned
 
     # -- serialization ------------------------------------------------------
 
@@ -300,21 +479,29 @@ class ConvEngine:
         missing = [l for l, p in self.packed.items() if not p.calibrated]
         if missing:
             raise ValueError(f"layers not calibrated: {sorted(missing)}")
-        include = self.hadamard_bits is not None
-        return {"packed": {l: p.to_tree(include_hadamard=include)
-                           for l, p in self.packed.items()}}
+        state = {"packed": {
+            l: p.to_tree(include_hadamard=self._layer_hbits(l) is not None)
+            for l, p in self.packed.items()}}
+        if self.plan is not None:
+            # every routed layer, direct ones too: a planned checkpoint
+            # determines routing with no policy
+            state["plan"] = self.plan.to_tree()
+        return state
 
     def state_template(self) -> dict:
         """Zero-filled tree matching ``export_state`` — the restore
         skeleton for ``repro_torch.checkpoint.restore`` after
-        ``prepare()``."""
-        def tmpl(p: PackedWinogradWeights) -> dict:
+        ``prepare()``. It has a ``plan`` group only when the engine holds
+        a plan, so a checkpoint without one restores into a plan-less
+        engine; recover a checkpoint's plan first with
+        ``conv.planner.Plan.from_checkpoint``."""
+        def tmpl(l: str, p: PackedWinogradWeights) -> dict:
             P = p.u_q.shape[0]
             zeros = torch.zeros((P, 1), dtype=torch.float32,
                                 device=self.device)
             t = {"u_q": p.u_q, "w_scales": p.w_scales,
                  "in_scales": p.in_scales if p.calibrated else zeros}
-            if self.hadamard_bits is not None:
+            if self._layer_hbits(l) is not None:
                 t["hadamard_amax"] = (p.hadamard_amax
                                       if p.hadamard_amax is not None
                                       else zeros)
@@ -323,10 +510,17 @@ class ConvEngine:
                                            .BLOCKS_MISSING,
                                            dtype=torch.int32))
             return t
-        return {"packed": {l: tmpl(p) for l, p in self.packed.items()}}
+        state = {"packed": {l: tmpl(l, p) for l, p in self.packed.items()}}
+        if self.plan is not None:
+            state["plan"] = self.plan.to_tree()
+        return state
 
     def import_state(self, tree: dict):
         """Adopt a restored packed + calibrated tree, placed on this
-        engine's device."""
+        engine's device. A tree with a ``plan`` group makes the
+        checkpoint's plan the engine's."""
+        if "plan" in tree:
+            from repro_torch.conv.planner import Plan
+            self.plan = Plan.from_tree(tree["plan"])
         self.packed = {l: PackedWinogradWeights.from_tree(sub, self.device)
                        for l, sub in tree["packed"].items()}

@@ -14,11 +14,34 @@ from typing import ClassVar, Optional
 import torch
 
 from repro_torch.core.winograd import WinogradSpec
+from repro_torch.kernels.fused_serve import TILES
 from repro_torch.kernels.ops import (input_abs_max, prepare_weights_int8,
                                      scales_from_abs_max)
 
 __all__ = ["PackedWinogradWeights", "pack_weights", "observed_abs_max",
-           "merge_abs_max", "scales_from_abs_max"]
+           "merge_abs_max", "scales_from_abs_max", "K4_TILE_TAG",
+           "tile_leaf", "tile_from_leaf"]
+
+#: Third field of the ``blocks`` leaf where it holds a K4 tile.
+K4_TILE_TAG = -2
+
+
+def tile_leaf(tile: tuple) -> torch.Tensor:
+    """K4 tile ``(bt, bc)`` → its ``blocks`` leaf ``(-bt, -bc, -2)``."""
+    bt, bc = (int(t) for t in tile)
+    if (bt, bc) not in TILES:
+        raise ValueError(f"K4 has no tile {tile}; it was compiled for "
+                         f"{TILES}")
+    return torch.tensor([-bt, -bc, K4_TILE_TAG], dtype=torch.int32)
+
+
+def tile_from_leaf(leaf: Optional[torch.Tensor]) -> Optional[tuple]:
+    """The K4 tile a ``blocks`` leaf holds, or None where it holds none
+    (untuned, or the JAX package's block split)."""
+    if leaf is None or tuple(leaf.shape) != (3,):
+        return None
+    a, b, tag = (int(v) for v in leaf.tolist())
+    return (-a, -b) if tag == K4_TILE_TAG and (-a, -b) in TILES else None
 
 
 @dataclasses.dataclass
@@ -32,9 +55,24 @@ class PackedWinogradWeights:
 
     A missing ``hadamard_amax`` is a legitimate state (a re-pack after a
     weight update drops it) and serializes as a negative sentinel leaf.
-    ``blocks``: (3,) int32 — the JAX package's autotuned TPU block split,
-    kept so checkpoints stay interchangeable; the port's kernels do not
-    read it. Untuned serializes as a negative sentinel.
+
+    ``blocks``: the (3,) int32 CPU leaf both packages keep under this
+    name, or None (untuned; serialized as ``BLOCKS_MISSING`` thrice). It
+    means something else in each package:
+
+    * in the JAX package, the autotuned Pallas block split
+      ``(bm, bn, bk)``, all positive;
+    * in this port, K4's autotuned block tile ``(bt, bc)``
+      (``conv.autotune``), stored negated with a tag,
+      ``(-bt, -bc, K4_TILE_TAG)``: all negative, which the JAX package
+      reads as untuned.
+
+    So neither package takes the other's value for its own: ``tile`` is
+    the K4 tile only where the leaf is the port's encoding of a tile K4
+    was compiled for (``kernels.fused_serve.TILES``), and None ("not
+    tuned", K4 then picks ``fused_tile``) for anything else, a JAX block
+    split included. The leaf itself is kept as it came, so a checkpoint
+    round-trips it bit for bit.
     """
 
     u_q: torch.Tensor
@@ -47,6 +85,11 @@ class PackedWinogradWeights:
     HADAMARD_MISSING: ClassVar[float] = -1.0
     #: Serialized stand-in for untuned ``blocks``.
     BLOCKS_MISSING: ClassVar[int] = -1
+
+    @property
+    def tile(self) -> Optional[tuple]:
+        """K4's tuned block tile ``(bt, bc)``, or None (see ``blocks``)."""
+        return tile_from_leaf(self.blocks)
 
     @property
     def calibrated(self) -> bool:
@@ -91,8 +134,8 @@ class PackedWinogradWeights:
                 hs = None
         blocks = tree.get("blocks")
         if blocks is not None:
-            blocks = torch.as_tensor(blocks)
-            if int(blocks.max()) < 0:            # untuned
+            blocks = torch.as_tensor(blocks).to("cpu", torch.int32)
+            if bool((blocks == cls.BLOCKS_MISSING).all()):   # untuned
                 blocks = None
         return cls(u_q=leaf("u_q"), w_scales=leaf("w_scales"),
                    in_scales=leaf("in_scales"), hadamard_amax=hs,

@@ -13,7 +13,9 @@ fp Winograd convolution, otherwise every stage boundary (and, with
 transform) passes through ``fake_quant``, so autograd trains through it
 with the saturating straight-through estimator. *Flex* passes the
 transform matrices G_C, B_Cᵀ, A_Cᵀ (or G, Bᵀ, Aᵀ) as trainable tensors;
-C and C⁻¹ stay fixed. The 1-D pipeline of the JAX package is not ported.
+C and C⁻¹ stay fixed. ``winograd_conv1d`` is the same pipeline in 1-D
+(temporal convolutions: causal or centred padding), and
+``condition_number`` the 2-norm conditioning of a transform matrix.
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ from repro_torch.core.quantization import QuantConfig, fake_quant
 
 __all__ = ["WinogradSpec", "WinogradMatrices", "make_matrices",
            "flex_init", "transform_weights_2d", "winograd_conv2d",
-           "direct_conv2d"]
+           "direct_conv2d", "transform_weights_1d", "winograd_conv1d",
+           "direct_conv1d", "condition_number"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -304,3 +307,94 @@ def direct_conv2d(x: torch.Tensor, w: torch.Tensor, padding: str = "same",
                      deterministic=cudnn.deterministic, allow_tf32=False):
         y = F.conv2d(xn, wn, stride=stride)
     return y.permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# 1-D pipeline (temporal convolutions, e.g. RG-LRU's width-4 conv)
+# ---------------------------------------------------------------------------
+
+def _apply(M: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """M @ x over the trailing dim of X."""
+    return torch.einsum("ij,...j->...i", M, X)
+
+
+def transform_weights_1d(w: torch.Tensor, spec: WinogradSpec,
+                         mats: WinogradMatrices,
+                         flex: Optional[dict] = None) -> torch.Tensor:
+    """(r, Cin, Cout) weights → (Cin, Cout, n), with the casts of
+    ``transform_weights_2d`` along one axis."""
+    q = spec.quant
+    wt = w.permute(1, 2, 0)                         # (Cin, Cout, r)
+    w_axis = (0, 2) if q.per_channel_weights else None
+    wt = _q(wt, q.weight_bits, axis=w_axis)
+    Gm, _, _, back, _ = _resolve(mats, flex, spec, w)
+    U = _apply(Gm, wt)
+    if spec.changes_base:
+        U = _q_mid(U, q, ndims=1)
+        U = _apply(back, U)
+    return _q_dom(U, q.trans_bits, q, ndims=1)
+
+
+def winograd_conv1d(x: torch.Tensor, w: torch.Tensor, spec: WinogradSpec,
+                    mats: Optional[WinogradMatrices] = None,
+                    flex: Optional[dict] = None,
+                    causal: bool = True,
+                    U: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Quantization-aware 1-D Toom-Cook convolution, stride 1.
+    x: (N, T, C), w: (r, Cin, Cout) → (N, T, Cout).
+
+    ``causal=True`` left-pads r - 1 (the RG-LRU temporal conv); False
+    centres the window. ``U``: pre-transformed weights
+    (``transform_weights_1d``)."""
+    if mats is None:
+        mats = make_matrices(spec)
+    q = spec.quant
+    N, T, _ = x.shape
+    r, m, n = spec.r, spec.m, spec.n
+    if w.shape[0] != r:
+        raise ValueError(f"weights {tuple(w.shape)} do not fit {spec}")
+    lo, hi, nt, To = _pad_amounts(T, m, r, "same", causal=causal)
+    xp = F.pad(x, (0, 0, lo, hi))
+    tiles = _extract_tiles_1d_axis(xp, m, n, axis=1)     # (N, nt, C, n)
+    tiles = _q(tiles, q.act_bits)
+    _, BTm, ATm, _, backT = _resolve(mats, flex, spec, tiles)
+    if spec.changes_base:
+        V = _q_mid(_apply(backT, tiles), q, ndims=1)
+        V = _apply(BTm, V)
+    else:
+        V = _apply(BTm, tiles)
+    V = _q_dom(V, q.trans_bits, q, ndims=1)
+    if U is None:
+        U = transform_weights_1d(w, spec, mats, flex)    # (Cin, Cout, n)
+    H_ = torch.einsum("btci,cdi->btdi", V, U)
+    H_ = _q_dom(H_, q.hadamard_bits, q, ndims=1)
+    if spec.changes_base:
+        Y = _q_mid(_apply(backT, H_), q, ndims=1)
+        Y = _apply(ATm, Y)
+    else:
+        Y = _apply(ATm, H_)
+    Y = _q(Y, q.act_bits)
+    Y = Y.permute(0, 1, 3, 2).reshape(N, nt * m, -1)
+    return Y[:, :To, :]
+
+
+def direct_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  causal: bool = True) -> torch.Tensor:
+    """Direct 1-D convolution in full fp32, NTC × (r, Cin, Cout) → NTC,
+    left-padded r - 1 when causal, else centred (the low side takes the
+    smaller half)."""
+    r = w.shape[0]
+    lo = r - 1 if causal else (r - 1) // 2
+    xn = F.pad(x.permute(0, 2, 1), (lo, r - 1 - lo))
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
+        y = F.conv1d(xn, w.permute(2, 1, 0))
+    return y.permute(0, 2, 1)
+
+
+def condition_number(M) -> float:
+    """2-norm condition number of a matrix (largest over smallest
+    singular value, in float64): the conditioning of a transform."""
+    s = np.linalg.svd(np.asarray(M, np.float64), compute_uv=False)
+    return float(s.max() / s.min())

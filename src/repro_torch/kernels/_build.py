@@ -9,7 +9,9 @@ one is reused. The first call to ``load`` builds every source at once,
 one ``nvcc`` process each, all started together.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made: each
-wrapper adds one where it launches its kernel and nowhere else.
+wrapper adds one where it launches its kernel and nowhere else (a launch
+recorded into a CUDA graph counts once, where it is recorded; a replay
+adds nothing). ``BUILDS`` lists every source this process compiled.
 """
 from __future__ import annotations
 
@@ -21,9 +23,9 @@ import subprocess
 from pathlib import Path
 import torch
 
-__all__ = ["LAUNCHES", "BUILD_LOG", "reset_launches", "nvcc_path", "load",
-           "build_all", "launch", "require", "stream", "cuda_device",
-           "NVCC_FLAGS", "SOURCES", "BUILD_DIR", "SMS"]
+__all__ = ["LAUNCHES", "BUILD_LOG", "BUILDS", "reset_launches",
+           "nvcc_path", "load", "build_all", "launch", "require", "stream",
+           "cuda_device", "NVCC_FLAGS", "SOURCES", "BUILD_DIR", "SMS"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -50,6 +52,8 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 _FNS: dict = {}
 #: ``-Xptxas -v`` output (registers, shared memory, spills) per source.
 BUILD_LOG: dict[str, str] = {}
+#: Every source compiled in this process, in order.
+BUILDS: list[str] = []
 
 
 def reset_launches() -> None:
@@ -104,6 +108,7 @@ def build_all() -> list[str]:
             failed.append(f"{n}.cu (exit {p.returncode}):\n{log}")
             continue
         os.replace(tmp, out)
+        BUILDS.append(n)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return todo

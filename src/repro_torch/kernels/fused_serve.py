@@ -127,13 +127,18 @@ def fused_gemm_output(xq: torch.Tensor, u_q: torch.Tensor,
                       deq: torch.Tensor, rq: torch.Tensor,
                       cinvt: torch.Tensor, apt: torch.Tensor, *, m: int,
                       requant_bits: Optional[int] = None,
-                      changes_base: bool = True) -> torch.Tensor:
+                      changes_base: bool = True,
+                      tile: Optional[tuple] = None) -> torch.Tensor:
     """Fused GEMM → Hadamard requant → output transform.
 
     xq: (P, T, Cin) int8, u_q: (P, Cin, Cout) int8, deq/rq: (P, 1) fp32
     per-position dequant / requant scales (``rq`` unused when
     ``requant_bits`` is None — pass ones), cinvt (n, n) / apt (m, n)
     → (T, Cout, m, m) fp32 spatial output tiles.
+
+    ``tile``: the kernel's block tile, one of ``TILES`` that fits shared
+    memory (``conv.autotune`` chooses it); None takes ``fused_tile``. The
+    output is the same bits at every tile.
     """
     P, T, K = xq.shape
     P2, K2, N = u_q.shape
@@ -162,7 +167,15 @@ def fused_gemm_output(xq: torch.Tensor, u_q: torch.Tensor,
     qm = 0 if requant_bits is None else qmax(requant_bits)
     # made once a call by two small multiplies, not by every block
     tbase, ta = _terms(cinvt, n), _terms(apt, n)
-    bt, bc = fused_tile(n, T, N, qm > 0)
+    if tile is None:
+        bt, bc = fused_tile(n, T, N, qm > 0)
+    else:
+        bt, bc = tile
+        if (bt, bc) not in TILES or \
+                fused_smem_bytes(n, bt, bc, qm > 0) > SMEM_LIMIT:
+            raise ValueError(f"tile {tile}: K4 takes one of {TILES} that "
+                             f"fits {SMEM_LIMIT} bytes of shared memory "
+                             f"at n = {n}")
     out = torch.empty((T, N, m, m), dtype=f32, device=dev)
     I, Pt = _build.INT, _build.PTR
     _build.launch("fused_serve", "fused_gemm_output",

@@ -150,7 +150,8 @@ def winograd_conv2d_int8(x: torch.Tensor, w: Optional[torch.Tensor],
                          w_scales: Optional[torch.Tensor] = None,
                          hadamard_bits: Optional[int] = None,
                          h_amax: Optional[torch.Tensor] = None,
-                         fused: bool = False) -> torch.Tensor:
+                         fused: bool = False,
+                         tile: Optional[tuple] = None) -> torch.Tensor:
     """True-int8 Winograd conv. x: (N,H,W,Cin) NHWC fp32.
 
     * **dynamic**: pass raw HWIO weights ``w``; weight packing and the
@@ -161,6 +162,7 @@ def winograd_conv2d_int8(x: torch.Tensor, w: Optional[torch.Tensor],
 
     ``fused=True`` serves through K4 whenever no dynamic reduction is
     needed (requant off, or ``h_amax`` calibrated); otherwise staged.
+    ``tile``: K4's block tile (None: its default).
     """
     if u_q is None:
         if w is None:
@@ -175,7 +177,7 @@ def winograd_conv2d_int8(x: torch.Tensor, w: Optional[torch.Tensor],
         in_scales = scales_from_abs_max(_tiles_abs_max(tiles, spec))
     return execute_int8(tiles, u_q, w_scales, in_scales, h_amax,
                         spec=spec, geom=geom, hadamard_bits=hadamard_bits,
-                        fused=fused)
+                        fused=fused, tile=tile)
 
 
 def execute_int8(tiles: torch.Tensor, u_q: torch.Tensor,
@@ -183,14 +185,15 @@ def execute_int8(tiles: torch.Tensor, u_q: torch.Tensor,
                  h_amax: Optional[torch.Tensor] = None, *,
                  spec: WinogradSpec, geom: tuple,
                  hadamard_bits: Optional[int], with_stats: bool = False,
-                 fused: bool = False):
+                 fused: bool = False, tile: Optional[tuple] = None):
     """The serving hot path on extracted tiles, prepared weights and
     static scales.
 
     With calibrated ``h_amax`` (the (n²,) per-position abs-max of the
     Hadamard products) the requant stage does no reduction either.
     ``with_stats=True`` (calibration) runs staged and also returns this
-    batch's Hadamard abs-max.
+    batch's Hadamard abs-max. ``tile``: K4's block tile (None: its
+    default).
     """
     if with_stats and hadamard_bits is None:
         raise ValueError("with_stats records the Hadamard abs-max; it "
@@ -210,7 +213,7 @@ def execute_int8(tiles: torch.Tensor, u_q: torch.Tensor,
             rq = _hadamard_rq(h_amax, hadamard_bits)
         y = fused_gemm_output(Xq, u_q, deq, rq, ops["CinvT"], ops["APT"],
                               m=m, requant_bits=hadamard_bits,
-                              changes_base=spec.changes_base)
+                              changes_base=spec.changes_base, tile=tile)
         return _reassemble(y, geom, m)
 
     amax_h = None

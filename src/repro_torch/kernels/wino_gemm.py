@@ -24,7 +24,7 @@ from repro_torch.kernels.ref import wino_gemm_ref
 
 __all__ = ["wino_gemm", "wino_gemm_plain", "requant_plane",
            "gemm_positions", "gemm_grid", "mainloop_smem_bytes",
-           "INT32_ACC_LIMIT", "FP32_EXACT_INT_LIMIT"]
+           "INT32_ACC_LIMIT", "FP32_EXACT_INT_LIMIT", "max_abs_accumulator"]
 
 #: Largest magnitude the int32 accumulator of K2 and K4 can hold.
 INT32_ACC_LIMIT = 2 ** 31 - 1
@@ -34,6 +34,15 @@ INT32_ACC_LIMIT = 2 ** 31 - 1
 #: cast itself rounds. With int8 operands, |acc| ≤ Cin·127², so the cast
 #: is exact for Cin ≤ 1040.
 FP32_EXACT_INT_LIMIT = 2 ** 24
+
+
+
+def max_abs_accumulator(K: int, bits: int = 8) -> int:
+    """Worst-case |int32 accumulator| after a K-deep int8 × int8 GEMM
+    reduction: every operand at ±qmax(bits) with aligned signs, K·127²
+    for int8 (exact and attained)."""
+    return K * qmax(bits) ** 2
+
 
 #: K2's block tile (rows of x, columns of w), 8 warps (256 threads).
 TILE = (128, 64)

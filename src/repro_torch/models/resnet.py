@@ -25,13 +25,14 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch.conv import ConvEngine, ConvPolicy
+from repro_torch.conv.planner import LayerGeom
 from repro_torch.core.quantization import QuantConfig
 from repro_torch.core.winograd import WinogradSpec, flex_init
 from repro_torch.models.param import ParamSpec
 
 __all__ = ["ResNetConfig", "ResNet", "param_specs", "state_specs",
            "init_flex", "make_engine", "conv_layers", "params_from_jax",
-           "loss_fn", "NUM_CLASSES"]
+           "loss_fn", "serving_forward", "layer_geoms", "NUM_CLASSES"]
 
 NUM_CLASSES = 10
 _STAGES = (2, 2, 2, 2)          # ResNet18 basic blocks per stage
@@ -145,18 +146,71 @@ def params_from_jax(params_np: dict, state_np: dict) -> tuple[dict, dict]:
 
 
 def make_engine(cfg: ResNetConfig, backend: Optional[str] = None,
-                fused: bool = True, device=None) -> ConvEngine:
+                fused: bool = True, device=None,
+                autotune: bool = False,
+                autotune_opts: Optional[dict] = None,
+                plan=None,
+                warmup: Optional[tuple] = None) -> ConvEngine:
     """The config's ConvEngine. ``backend`` overrides the eligible-conv
     backend (``"winograd_int8"`` to serve through the CUDA kernels,
     ``"direct"`` for the fp32 reference); ``fused=False`` forces the
-    staged int8 pipeline."""
+    staged int8 pipeline. ``autotune``/``autotune_opts``: tune K4's tile
+    per layer shape at calibration (``conv.autotune``). ``plan``: a
+    measured ``conv.planner.Plan`` (planned layers route by their entry,
+    the policy covers the rest).
+
+    ``warmup=(params, state, geometries)`` also builds the serving
+    forward (``serving_forward``) as ``engine.serve_fn`` and runs
+    ``engine.warmup`` over the ``(batch, 32, 32, 3)`` geometries. Only for
+    an engine that holds its final serving state when built; a restore
+    flow calls ``engine.warmup`` after ``import_state``."""
     if not cfg.use_winograd or cfg.wino is None:
-        return ConvEngine(cfg.wino,
-                          ConvPolicy(backend="direct", fallback="direct"),
-                          device=device)
-    backend = backend or cfg.conv_backend or "winograd_fakequant"
-    return ConvEngine(cfg.wino, ConvPolicy(backend=backend), fused=fused,
-                      device=device)
+        eng = ConvEngine(cfg.wino,
+                         ConvPolicy(backend="direct", fallback="direct"),
+                         device=device, plan=plan)
+    else:
+        backend = backend or cfg.conv_backend or "winograd_fakequant"
+        eng = ConvEngine(cfg.wino, ConvPolicy(backend=backend), fused=fused,
+                         device=device, autotune=autotune,
+                         autotune_opts=autotune_opts, plan=plan)
+    if warmup is not None:
+        params, state, geometries = warmup
+        eng.serve_fn = serving_forward(ResNet(cfg, params, state, eng))
+        eng.warmup(geometries)
+    return eng
+
+
+def serving_forward(model: "ResNet", engine: Optional[ConvEngine] = None):
+    """The online serving callable: images → logits in inference mode
+    through ``engine`` (the model's own by default), one CUDA graph per
+    input shape on the card (``serving.graphs.GraphedForward``; eager on
+    the CPU). Build it once per engine and reuse it: a new one captures
+    every shape again. The logits it returns are the graph's static
+    output, overwritten by the next call of the same shape."""
+    from repro_torch.serving.graphs import GraphedForward
+    eng = engine or model.engine
+    return GraphedForward(lambda images: model(images, eng), eng.device)
+
+
+def layer_geoms(cfg: ResNetConfig, batch: int,
+                image_hw: int = 32) -> list[LayerGeom]:
+    """The planner's layer menu: one ``conv.planner.LayerGeom`` per
+    engine-routed conv, in ``conv_layers`` order, at the input shapes the
+    forward gives each (SAME padding halves the extent at every stride-2
+    block)."""
+    hw = image_hw
+    geoms = [LayerGeom("stem", (batch, hw, hw, 3), cfg.widths[0])]
+    for nm, cin, cout, stride in _iter_blocks(cfg):
+        hw_out = -(-hw // stride)
+        geoms.append(LayerGeom(f"{nm}.conv1", (batch, hw, hw, cin), cout,
+                               stride=stride))
+        geoms.append(LayerGeom(f"{nm}.conv2", (batch, hw_out, hw_out, cout),
+                               cout))
+        if _has_proj(cin, cout, stride):
+            geoms.append(LayerGeom(f"{nm}.proj", (batch, hw, hw, cin), cout,
+                                   kernel_size=1, stride=stride))
+        hw = hw_out
+    return geoms
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:

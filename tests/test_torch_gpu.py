@@ -499,3 +499,81 @@ def test_trainer_takes_a_step_on_card():
     assert all(v > 0 for v in out["param_change"].values())
     assert all(v > 0 for v in out["bn_change"].values())
     assert out["peak_mem_bytes"] > 0
+
+
+def test_serve_launcher_captures_nothing_after_warmup_on_card():
+    """``launch/serve`` on the card: one CUDA graph per bucket captured at
+    warm-up and none after; every request answered; in every bucket the
+    served rows bit for bit with the eager forward of the same padded
+    batch (the launcher checks and raises); the graphs hold K1 and K4."""
+    _card()
+    from repro_torch.launch import serve
+    out = serve.main(["--width", "0.25", "--buckets", "1,4,16",
+                      "--max-wait-ms", "2", "--rate", "2000", "--requests",
+                      "256", "--solo-requests", "2", "--calib-steps", "1",
+                      "--calib-batch", "16", "--autotune", "--device",
+                      "cuda"])
+    assert out["answered"] == 256 and out["compiles_after_warmup"] == 0
+    assert out["captures"] == 3
+    assert sorted(out["rows_checked"]) == [1, 4, 16]
+    for b, per in out["launches_per_capture"].items():
+        assert per["input_transform"] == per["fused_gemm_output"] == 14, b
+    assert sum(out["replays"].values()) >= sum(
+        out["batches_by_bucket"].values())
+    assert set(out["tuned_tiles"].values()) <= {(32, 32), (16, 32)}
+
+
+@pytest.mark.parametrize("m", [2, 4, 6])
+def test_planner_and_autotune_run_the_kernels_on_card(m):
+    """``measure_layer`` and ``autotune_blocks`` at n = 4/6/8 with the
+    Hadamard stage off (qm = 0) and at 9 bits: the candidates run K1, K2
+    and K3 (calibration) and K4 (the timed hot path) on the card, and K4
+    is bit for bit with its plain version at every tile tuned over."""
+    from repro_torch.conv import autotune
+    from repro_torch.conv.planner import (LayerGeom, PlanEntry,
+                                          clear_measure_cache,
+                                          measure_layer)
+    dev = _card()
+    clear_measure_cache()
+    autotune.clear_cache()
+    geom = LayerGeom("l", (8, 16, 16, 64), 64)
+    for bits in (None, 9):
+        entry = PlanEntry("winograd_int8", m=m, r=3, base="legendre",
+                          hadamard_bits=bits)
+        _build.reset_launches()
+        costs = measure_layer(geom, [PlanEntry(), entry], device=dev,
+                              iters=2, warmup=1)
+        torch.cuda.synchronize()
+        assert all(np.isfinite(c.us) and c.us > 0 for c in costs)
+        # the kernels' error is the plain versions' (the fp32 reference
+        # convolutions sum in another order on each device)
+        plain = measure_layer(geom, [entry], device="cpu", iters=1,
+                              warmup=0)[0]
+        assert costs[1].rel_err == pytest.approx(plain.rel_err, abs=1e-5)
+        for k in ("input_transform", "wino_gemm", "output_transform",
+                  "fused_gemm_output"):
+            assert _build.LAUNCHES[k] > 0, (m, bits, k)
+        spec = entry.spec()
+        T = 8 * (-(-16 // m)) ** 2
+        _build.reset_launches()
+        res = autotune.autotune_blocks(spec, T, 64, 64, hadamard_bits=bits,
+                                       device=dev, iters=2, warmup=1)
+        assert res.measured and res.tile in ((32, 32), (16, 32))
+        assert _build.LAUNCHES["fused_gemm_output"] == \
+            3 * len(res.timings)
+        spec_n, P = spec.n, spec.n ** 2
+        rng = np.random.default_rng(m)
+        xq = torch.from_numpy(rng.integers(-127, 128, (P, T, 64),
+                                           dtype=np.int8)).to(dev)
+        uq = torch.from_numpy(rng.integers(-127, 128, (P, 64, 64),
+                                           dtype=np.int8)).to(dev)
+        deq = torch.full((P, 1), 1e-4, device=dev)
+        rq = torch.full((P, 1), 0.05 if bits else 1.0, device=dev)
+        o = ops._operands(spec, dev)
+        want = fused_gemm_output_plain(xq, uq, deq, rq, o["CinvT"], o["APT"],
+                                       m=m, requant_bits=bits)
+        for tile, _ in res.timings:
+            got = fused_gemm_output(xq, uq, deq, rq, o["CinvT"], o["APT"],
+                                    m=m, requant_bits=bits, tile=tile)
+            assert torch.equal(_bits(got), _bits(want)), (m, bits, tile)
+        assert spec_n == m + 2
