@@ -65,7 +65,10 @@ fails the run:
               forward of the same padded batch; a second, traced load of
               2,048 requests for the device's busy share under load and
               its time by kernel; launches read around it
-              (K1–K4 > 0; per capture and replays); and the padded-parity
+              (K1–K4 > 0; per capture and replays); K4's tiles timed at
+              buckets 64 and 256 per served layer shape beside the tile
+              each bucket serves (tuned at calibration for bucket 256,
+              at warm-up for the others); and the padded-parity
               check on the card: one int8 Winograd layer, a row served in
               a zero-padded bucket bit for bit the row served alone.
 
@@ -1120,7 +1123,7 @@ def main() -> int:
                      "--calib-batch", str(BATCH), "--plan", "--plan-tiles",
                      "2,4,6", "--plan-bases", "canonical,legendre",
                      "--plan-bits", "none,8,9", "--autotune",
-                     "--check-batches", "2", "--trace-requests",
+                     "--trace-requests",
                      str(SERVE_REQUESTS // 2), "--device", "cuda"])
     torch.cuda.synchronize()
     sv["wall_s_total"] = time.perf_counter() - t0
@@ -1135,7 +1138,8 @@ def main() -> int:
     log(f"serve plan: {plan['describe']}; routes that differ from the "
         f"baseline F(4,3)/legendre/9b: {plan['differs_from_baseline']}")
     log(f"serve plan entries: {plan['entries']}")
-    log(f"serve tuned K4 tiles: {sv['tuned_tiles']}")
+    log(f"serve tuned K4 tiles at calibration (bucket {BATCH}): "
+        f"{sv['tuned_tiles']}; at warm-up, by T: {sv['warmup_tiles']}")
     log(f"serve warm-up s per bucket (eager run + capture + replay): "
         f"{sv['warmup_s']}")
     log(f"serve-alone: {sv['solo_ms']:.3f} ms a request through bucket "
@@ -1145,7 +1149,8 @@ def main() -> int:
         f"{sv['rate_rps']:.0f}/s → {sv['throughput_rps']:.1f}/s served, p50 "
         f"{sv['p50_ms']:.3f} ms, p99 {sv['p99_ms']:.3f} ms, mean batch "
         f"{sv['mean_batch']:.2f}, padding {100 * sv['padding_frac']:.1f}%, "
-        f"busy {100 * sv['busy_frac']:.1f}% (host clock), batches by bucket "
+        f"in flight {100 * sv['in_flight_frac']:.1f}% (share of the wall "
+        f"with a batch between dispatch and delivery), batches by bucket "
         f"{sv['batches_by_bucket']}, answered {sv['answered']}, captures "
         f"after warm-up {sv['compiles_after_warmup']}")
     log(f"serve rows bit for bit with the eager forward, batches checked "
@@ -1176,6 +1181,48 @@ def main() -> int:
             fail(f"kernel {k} was not launched on the serving path")
     if not replayed["input_transform"] or not replayed["fused_gemm_output"]:
         fail(f"serve: the captured graphs hold no K1/K4 launch: {replayed}")
+    # K4's tile per served layer shape at buckets 64 and 256: each T
+    # serves the tile tuned at it (at calibration for bucket 256, the
+    # calibration batch; at warm-up for the others), timed again here
+    from repro_torch.conv.autotune import autotune_blocks
+    from repro_torch.conv.planner import Plan
+    served_plan = Plan.from_dict(plan["dict"])
+    by_bucket: dict = {}
+    for b in (64, 256):
+        seen = {}
+        for g in RN.layer_geoms(RN.ResNetConfig(width_mult=1.0), b):
+            e = served_plan.get(g.layer)
+            if e is None or not e.is_winograd:
+                continue
+            spec = e.spec()
+            T = b * math.ceil(g.x_shape[1] / spec.m) \
+                * math.ceil(g.x_shape[2] / spec.m)
+            key = (e.describe(), T, g.cin, g.cout)
+            if key not in seen:
+                res = autotune_blocks(spec, T, g.cin, g.cout,
+                                      hadamard_bits=e.hadamard_bits,
+                                      device=dev)
+                seen[key] = {
+                    "entry": e.describe(), "T": T, "cin": g.cin,
+                    "cout": g.cout, "fused_tile": list(res.default_tile),
+                    "fastest": list(res.tile),
+                    "us": {f"{t[0]}x{t[1]}": us for t, us in res.timings},
+                    "layers": []}
+            seen[key]["layers"].append(g.layer)
+        by_bucket[b] = list(seen.values())
+        for r in by_bucket[b]:
+            layer = r["layers"][0]
+            served_tile = (sv["tuned_tiles"][layer]
+                           if sv["tuned_at_T"][layer] == r["T"]
+                           else sv["warmup_tiles"][layer][r["T"]])
+            r["served"] = list(served_tile)
+            log(f"serve K4 tile at bucket {b}: {r['entry']} T {r['T']} "
+                f"Cin {r['cin']} Cout {r['cout']} ({len(r['layers'])} "
+                f"layers): served {served_tile}, fused_tile "
+                f"{tuple(r['fused_tile'])}, "
+                f"fastest {tuple(r['fastest'])}; µs a call "
+                + ", ".join(f"{t} {us:.1f}" for t, us in r["us"].items()))
+    sv["k4_tiles_by_bucket"] = by_bucket
     # padded parity on the card: one int8 Winograd layer, a row served in
     # a zero-padded bucket bit for bit the same row served alone
     from repro_torch.conv import ConvEngine, ConvPolicy

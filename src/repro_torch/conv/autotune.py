@@ -16,10 +16,13 @@ static rule; this module finds the actual winner offline:
    the serving shape at each candidate with CUDA events, after warm-up,
    and returns the fastest with the whole timing table.
 
-The engine runs it at calibration (``ConvEngine(autotune=True)``), when
-each layer's tile geometry is fixed, and keeps each winner in the packed
-state (``PackedWinogradWeights.blocks``), so the tile rides through
-checkpoints and serving never tunes again. Results are also memoised per
+The engine runs it at calibration (``ConvEngine(autotune=True)``), at
+the calibration batch's tile geometry, and keeps each winner in the
+packed state with the T it was timed at (``PackedWinogradWeights.blocks``),
+so the tile rides through checkpoints; ``ConvEngine.warmup`` runs it at
+each serving geometry's T before that geometry's capture, so serving
+never tunes. A call takes the tile tuned at its own T, else
+``fused_tile``'s choice for its shape. Results are also memoised per
 (spec, shape) in-process, so same-shaped layers are timed once.
 
 Tuning changes time only: K4's output is the same bits at every tile.
@@ -74,22 +77,6 @@ def candidate_tiles(n: int, T: int, cout: int, requant: bool) -> list:
     return [d] + [t for t in fits if t != d]
 
 
-def _time_us(fn, iters: int, warmup: int) -> float:
-    """Median µs of one ``fn()`` on the card: a pair of CUDA events
-    around each call, read after one synchronize."""
-    for _ in range(warmup):
-        fn()
-    evs = [(torch.cuda.Event(enable_timing=True),
-            torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
-    for a, b in evs:
-        a.record()
-        fn()
-        b.record()
-    torch.cuda.synchronize()
-    times = sorted(a.elapsed_time(b) for a, b in evs)
-    return times[len(times) // 2] * 1e3
-
-
 #: (spec, T, cin, cout, hadamard_bits, device, iters, warmup) → TuneResult.
 _CACHE: dict = {}
 
@@ -100,31 +87,31 @@ def clear_cache():
 
 def autotune_blocks(spec: WinogradSpec, T: int, cin: int, cout: int, *,
                     hadamard_bits: Optional[int] = None,
-                    device=None, iters: int = 5, warmup: int = 2,
-                    max_candidates: Optional[int] = None) -> TuneResult:
+                    device=None, iters: int = 5, warmup: int = 2
+                    ) -> TuneResult:
     """Time K4 at each candidate tile for ``(spec, T, cin, cout)`` and
     return the winner.
 
     Operands are synthetic int8/fp32 tensors of the serving shape from a
     fixed seed: time depends on shapes only. ``device`` is where the
     engine serves (a CUDA device to measure; on the CPU the default tile
-    comes back unmeasured). ``max_candidates`` caps the search, the
-    default first. Memoised per (spec, shape, bits, device, options).
+    comes back unmeasured). Memoised per (spec, shape, bits, device,
+    options).
     """
     dev = torch.device("cuda" if device is None else device)
-    key = (spec, T, cin, cout, hadamard_bits, dev, iters, warmup,
-           max_candidates)
+    key = (spec, T, cin, cout, hadamard_bits, dev, iters, warmup)
     hit = _CACHE.get(key)
     if hit is not None:
         return hit
     n, requant = spec.n, hadamard_bits is not None
-    cands = candidate_tiles(n, T, cout, requant)[:max_candidates]
+    cands = candidate_tiles(n, T, cout, requant)
     default = cands[0]
     if dev.type != "cuda":
         res = TuneResult(default, math.nan, default, math.nan, ())
         _CACHE[key] = res
         return res
 
+    from repro_torch.conv.planner import time_call_us
     from repro_torch.kernels.ops import _operands
     P = n * n
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -138,10 +125,10 @@ def autotune_blocks(spec: WinogradSpec, T: int, cin: int, cout: int, *,
     ops = _operands(spec, dev)
     timings = []
     for tile in cands:
-        us = _time_us(lambda: fused_gemm_output(
+        us = time_call_us(lambda: fused_gemm_output(
             xq, uq, deq, rq, ops["CinvT"], ops["APT"], m=spec.m,
             requant_bits=hadamard_bits, changes_base=spec.changes_base,
-            tile=tile), iters, warmup)
+            tile=tile), dev, iters, warmup)
         timings.append((tile, us))
     timings.sort(key=lambda t: t[1])
     default_us = next(us for t, us in timings if t == default)

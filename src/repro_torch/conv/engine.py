@@ -42,8 +42,11 @@ Around the lifecycle:
   Cin)`` at pack time with the exact range certifier
   (``analysis.ranges``);
 * ``autotune=True`` times K4's block tiles per layer shape at the end of
-  calibration (``conv.autotune``) and keeps each winner in the packed
-  state, so it rides the checkpoint;
+  calibration (``conv.autotune``), at the calibration batch's geometry,
+  and keeps each winner with the T it was timed at in the packed state,
+  so it rides the checkpoint; ``warmup`` then times them at each serving
+  geometry's own T (``tuned_tiles``); a call at a T tuned neither way
+  takes ``fused_tile``;
 * ``plan=`` (a ``conv.planner.Plan``) routes each planned layer by its
   own measured entry, possibly another F(m, 3), base and Hadamard width
   per layer; the plan rides the checkpoint as ``plan/<layer>`` leaves;
@@ -112,10 +115,13 @@ class ConvEngine:
         CUDA engine raises here.
 
         ``autotune``: at the end of calibration, time K4's block tiles
-        once per distinct (spec, tile geometry) and keep each layer's
-        winner in its packed state (``conv.autotune``); serving then
-        never tunes. ``autotune_opts`` goes to ``autotune_blocks``
-        (``iters``, ``warmup``, ``max_candidates``). The output is the
+        once per distinct (spec, tile geometry) at the calibration
+        batch's T and keep each layer's winner, with that T, in its
+        packed state (``conv.autotune``); ``warmup`` tunes each serving
+        geometry's T the same way before its capture, so serving never
+        tunes. A call takes the tile tuned at its own T, else
+        ``fused_tile``'s choice. ``autotune_opts`` goes to
+        ``autotune_blocks`` (``iters``, ``warmup``). The output is the
         same bits at every tile.
 
         ``certify``: the pack-time range gate. Each int8 layer's
@@ -168,6 +174,9 @@ class ConvEngine:
         # (T, Cin, Cout) tile geometry each layer calibrated at: the
         # shape the tile autotuner searches.
         self._tile_geom: dict[str, tuple] = {}
+        # K4 tiles tuned at warm-up: {(layer, T): (bt, bc)}.
+        self.tuned_tiles: dict[tuple, tuple] = {}
+        self._tuning = False
         # The packed weights each calibration observed: the Hadamard
         # abs-max may only reattach to a later prepare() of the same
         # weights.
@@ -188,20 +197,26 @@ class ConvEngine:
         the first call of each shape runs eagerly, building any kernel
         and operand table, then captures the shape's CUDA graph), so the
         build and capture storm happens here and serving captures
-        nothing. Warm up once the engine holds its final serving state.
+        nothing. With ``autotune`` the eager run also tunes K4's tile at
+        each layer's T of the geometry (``tuned_tiles``), before the
+        capture. Warm up once the engine holds its final serving state.
         Returns {shape: seconds} per geometry."""
         forward = forward if forward is not None else self.serve_fn
         if forward is None:
             raise ValueError("warmup needs a serving callable: pass "
                              "forward= or set engine.serve_fn")
         times = {}
-        for g in geometries:
-            g = tuple(int(d) for d in g)
-            t0 = time.perf_counter()
-            forward(torch.zeros(g, device=self.device))
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            times[g] = time.perf_counter() - t0  # lint: waive=unsynced-timing
+        self._tuning = self.autotune
+        try:
+            for g in geometries:
+                g = tuple(int(d) for d in g)
+                t0 = time.perf_counter()
+                forward(torch.zeros(g, device=self.device))
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                times[g] = time.perf_counter() - t0  # lint: waive=unsynced-timing
+        finally:
+            self._tuning = False
         return times
 
     # -- dispatch -----------------------------------------------------------
@@ -293,15 +308,32 @@ class ConvEngine:
         if self._calibrating:
             return self._calibrate_conv(x, w, pk, layer, pad, spec, hbits)
         if pk is not None:
+            N, nt_h, nt_w, _, _ = _geometry(x.shape, spec.m, spec.r, pad)
+            tile = self._tile_for(layer, pk, spec, hbits, N * nt_h * nt_w)
             return winograd_conv2d_int8(
                 x, None, spec, pad,
                 in_scales=pk.in_scales if pk.calibrated else None,
                 u_q=pk.u_q, w_scales=pk.w_scales,
                 hadamard_bits=hbits,
                 h_amax=pk.hadamard_amax if pk.calibrated else None,
-                fused=self.fused, tile=pk.tile)
+                fused=self.fused, tile=tile)
         return winograd_conv2d_int8(x, w, spec, pad, hadamard_bits=hbits,
                                     fused=self.fused)
+
+    def _tile_for(self, layer, pk, spec, hbits, T: int):
+        """K4's tile for a call over ``T`` tiles: the packed state's
+        where it was tuned at this T, else one tuned at this T during
+        ``warmup`` (timed now, if warming up with ``autotune``), else
+        None (``fused_tile``)."""
+        tile = pk.tile_at(T) or self.tuned_tiles.get((layer, T))
+        if tile is None and self._tuning and self.fused and pk.calibrated:
+            from repro_torch.conv.autotune import autotune_blocks
+            tile = autotune_blocks(
+                spec, T, int(pk.u_q.shape[1]), int(pk.u_q.shape[2]),
+                hadamard_bits=hbits, device=self.device,
+                **self.autotune_opts).tile
+            self.tuned_tiles[(layer, T)] = tile
+        return tile
 
     def _calibrate_conv(self, x, w, pk, layer, pad, spec, hbits):
         """One int8 conv under calibration: extract tiles once, record
@@ -454,8 +486,9 @@ class ConvEngine:
     def autotune_packed(self) -> dict[str, tuple]:
         """Tune K4's block tile for every packed layer whose tile
         geometry calibration recorded, and keep each winner in its packed
-        state (``PackedWinogradWeights.blocks``). Same-shaped layers
-        share one timed search. Returns {layer: (bt, bc)}."""
+        state (``PackedWinogradWeights.blocks``) with the T it was timed
+        at. Same-shaped layers share one timed search. Returns
+        {layer: (bt, bc)}."""
         from repro_torch.conv.autotune import autotune_blocks
         tuned = {}
         for layer, geom in self._tile_geom.items():
@@ -467,7 +500,7 @@ class ConvEngine:
                                   device=self.device, **self.autotune_opts)
             tuned[layer] = res.tile
             self.packed[layer] = dataclasses.replace(
-                pk, blocks=tile_leaf(res.tile))
+                pk, blocks=tile_leaf(res.tile, geom[0]))
         return tuned
 
     # -- serialization ------------------------------------------------------

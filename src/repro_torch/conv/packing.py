@@ -19,29 +19,30 @@ from repro_torch.kernels.ops import (input_abs_max, prepare_weights_int8,
                                      scales_from_abs_max)
 
 __all__ = ["PackedWinogradWeights", "pack_weights", "observed_abs_max",
-           "merge_abs_max", "scales_from_abs_max", "K4_TILE_TAG",
-           "tile_leaf", "tile_from_leaf"]
-
-#: Third field of the ``blocks`` leaf where it holds a K4 tile.
-K4_TILE_TAG = -2
+           "merge_abs_max", "scales_from_abs_max", "tile_leaf",
+           "tile_from_leaf"]
 
 
-def tile_leaf(tile: tuple) -> torch.Tensor:
-    """K4 tile ``(bt, bc)`` → its ``blocks`` leaf ``(-bt, -bc, -2)``."""
+def tile_leaf(tile: tuple, T: int) -> torch.Tensor:
+    """K4 tile ``(bt, bc)``, tuned at ``T`` Winograd tiles → its
+    ``blocks`` leaf ``(-bt, -bc, -T)``."""
     bt, bc = (int(t) for t in tile)
     if (bt, bc) not in TILES:
         raise ValueError(f"K4 has no tile {tile}; it was compiled for "
                          f"{TILES}")
-    return torch.tensor([-bt, -bc, K4_TILE_TAG], dtype=torch.int32)
+    if int(T) < 1:
+        raise ValueError(f"a tile is tuned at T >= 1 tiles, not {T}")
+    return torch.tensor([-bt, -bc, -int(T)], dtype=torch.int32)
 
 
 def tile_from_leaf(leaf: Optional[torch.Tensor]) -> Optional[tuple]:
-    """The K4 tile a ``blocks`` leaf holds, or None where it holds none
-    (untuned, or the JAX package's block split)."""
+    """``((bt, bc), T)``: the K4 tile a ``blocks`` leaf holds and the T
+    it was tuned at, or None where it holds none (untuned, or the JAX
+    package's block split)."""
     if leaf is None or tuple(leaf.shape) != (3,):
         return None
-    a, b, tag = (int(v) for v in leaf.tolist())
-    return (-a, -b) if tag == K4_TILE_TAG and (-a, -b) in TILES else None
+    a, b, t = (int(v) for v in leaf.tolist())
+    return ((-a, -b), -t) if (-a, -b) in TILES and t < 0 else None
 
 
 @dataclasses.dataclass
@@ -63,16 +64,17 @@ class PackedWinogradWeights:
     * in the JAX package, the autotuned Pallas block split
       ``(bm, bn, bk)``, all positive;
     * in this port, K4's autotuned block tile ``(bt, bc)``
-      (``conv.autotune``), stored negated with a tag,
-      ``(-bt, -bc, K4_TILE_TAG)``: all negative, which the JAX package
-      reads as untuned.
+      (``conv.autotune``) and the number of Winograd tiles T it was
+      timed at, stored negated, ``(-bt, -bc, -T)``: all negative, which
+      the JAX package reads as untuned.
 
-    So neither package takes the other's value for its own: ``tile`` is
-    the K4 tile only where the leaf is the port's encoding of a tile K4
-    was compiled for (``kernels.fused_serve.TILES``), and None ("not
-    tuned", K4 then picks ``fused_tile``) for anything else, a JAX block
-    split included. The leaf itself is kept as it came, so a checkpoint
-    round-trips it bit for bit.
+    So neither package takes the other's value for its own: ``tile_at``
+    gives the K4 tile only where the leaf is the port's encoding of a
+    tile K4 was compiled for (``kernels.fused_serve.TILES``) and the
+    call has the T it was tuned at, and None ("not tuned", K4 then
+    picks ``fused_tile`` for the call's own shape) otherwise: at any
+    other T, and for a JAX block split. The leaf itself is kept as it
+    came, so a checkpoint round-trips it bit for bit.
     """
 
     u_q: torch.Tensor
@@ -87,9 +89,16 @@ class PackedWinogradWeights:
     BLOCKS_MISSING: ClassVar[int] = -1
 
     @property
-    def tile(self) -> Optional[tuple]:
-        """K4's tuned block tile ``(bt, bc)``, or None (see ``blocks``)."""
+    def tuned(self) -> Optional[tuple]:
+        """``((bt, bc), T)``: K4's tuned tile and the T it was timed at,
+        or None (see ``blocks``)."""
         return tile_from_leaf(self.blocks)
+
+    def tile_at(self, T: int) -> Optional[tuple]:
+        """K4's tuned tile for a call over ``T`` Winograd tiles: the
+        tuned one at the T it was timed at, else None (``fused_tile``)."""
+        tuned = self.tuned
+        return tuned[0] if tuned is not None and tuned[1] == T else None
 
     @property
     def calibrated(self) -> bool:

@@ -41,7 +41,7 @@ from repro_torch.core.winograd import WinogradSpec
 __all__ = [
     "PlanEntry", "Plan", "LayerGeom", "CandidateCost",
     "candidate_entries", "measure_layer", "solve_plan", "build_plan",
-    "plan_cost_us", "clear_measure_cache", "PLAN_VEC_LEN",
+    "plan_cost_us", "clear_measure_cache", "time_call_us", "PLAN_VEC_LEN",
     "DEFAULT_TILE_SIZES", "DEFAULT_BASES", "DEFAULT_HADAMARD_BITS",
 ]
 
@@ -274,7 +274,7 @@ def clear_measure_cache():
     _MEASURE_CACHE.clear()
 
 
-def _time_call(fn, device: torch.device, iters: int, warmup: int) -> float:
+def time_call_us(fn, device: torch.device, iters: int, warmup: int) -> float:
     """Median µs of ``fn()``: on the card a pair of CUDA events around
     each call, read after one synchronize; on the CPU the host clock."""
     for _ in range(warmup):
@@ -347,7 +347,7 @@ def measure_layer(geom: LayerGeom,
             out.append(hit)
             continue
         if not entry.is_winograd:
-            us = _time_call(lambda: direct_conv2d(x, w, padding,
+            us = time_call_us(lambda: direct_conv2d(x, w, padding,
                                                   geom.stride),
                             dev, iters, warmup)
             cost = CandidateCost(entry, us, 0.0)
@@ -367,7 +367,7 @@ def measure_layer(geom: LayerGeom,
             def fn(e=eng):
                 return e.conv2d(x, None, layer=geom.layer,
                                 stride=geom.stride)
-            us = _time_call(fn, dev, iters, warmup)
+            us = time_call_us(fn, dev, iters, warmup)
             cost = CandidateCost(entry, us, _rel_rms(fn(), y_ref))
         _MEASURE_CACHE[key] = cost
         out.append(cost)

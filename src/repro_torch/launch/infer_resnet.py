@@ -21,9 +21,11 @@ The counterpart of ``repro.launch.infer_resnet`` stages 1–4:
    ``winograd_fp`` network (the exact F(4,3) pipeline in plain PyTorch,
    as the JAX launcher's gate).
 
+Stages 1–3 are ``launch.offline``'s, shared with ``launch.serve``.
 ``--plan`` first measures a per-layer algorithm plan at the serving
 batch (``conv.planner``), and ``--autotune`` tunes K4's block tile per
-layer at calibration (``conv.autotune``); both ride the checkpoint, and
+layer at calibration, at the serving batch's geometry
+(``conv.autotune``); both ride the checkpoint, and
 the served engines take the plan back from it. Runs on the card unless
 ``--device cpu`` is passed, which runs the kernels' plain versions.
 Sharded serving of the JAX launcher is not ported yet.
@@ -37,12 +39,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.checkpoint import restore, save
-from repro_torch.conv.planner import Plan, PlanEntry, build_plan
+from repro_torch.checkpoint.checkpoint import restore
+from repro_torch.conv.planner import Plan
 from repro_torch.core.quantization import QuantConfig
 from repro_torch.core.winograd import WinogradSpec
 from repro_torch.data.pipeline import cifar_batch_at
 from repro_torch.device import resolve_device
+from repro_torch.launch.offline import add_offline_args, build_checkpoint
 from repro_torch.models import resnet as RN
 from repro_torch.models.param import init_params
 
@@ -78,22 +81,7 @@ def main(argv: Optional[list] = None) -> dict:
                          "runs their plain PyTorch versions")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and images")
-    ap.add_argument("--autotune", action="store_true",
-                    help="tune K4's block tile per layer shape at "
-                         "calibration; the tiles ride the checkpoint")
-    ap.add_argument("--plan", action="store_true",
-                    help="measure a per-layer algorithm plan at the "
-                         "serving batch before packing; it rides the "
-                         "checkpoint")
-    ap.add_argument("--plan-iters", type=int, default=5,
-                    help="timed calls per planner candidate")
-    ap.add_argument("--plan-tiles", default="2,4,6",
-                    help="Winograd output tiles the planner considers")
-    ap.add_argument("--plan-bases", default="canonical,legendre",
-                    help="polynomial bases the planner considers")
-    ap.add_argument("--plan-bits", default="none,8,9",
-                    help="Hadamard widths the planner considers ('none': "
-                         "the requant stage off)")
+    add_offline_args(ap, plan_at="the serving batch")
     args = ap.parse_args(argv)
     if args.calib_steps < 1:
         ap.error("--calib-steps must be >= 1 (int8 serving needs "
@@ -116,42 +104,13 @@ def _run(args, device: torch.device, ckpt_dir: str) -> dict:
     state = init_params(RN.state_specs(cfg),
                         torch.Generator().manual_seed(args.seed + 1))
 
-    # 0. plan — per-layer algorithm choice, measured at the serving batch
-    plan = None
-    if args.plan:
-        from repro_torch.launch.serve import parse_bits
-        plan, _ = build_plan(
-            RN.layer_geoms(cfg, args.batch),
-            baseline=PlanEntry("winograd_int8", m=4, r=3, base=args.base,
-                               hadamard_bits=9),
-            tile_sizes=tuple(int(t) for t in args.plan_tiles.split(",")),
-            bases=tuple(args.plan_bases.split(",")),
-            hadamard_bits=parse_bits(args.plan_bits), device=device,
-            iters=args.plan_iters)
-        print(f"[plan] {plan.describe()}")
-
-    # 1. pack — offline weight transform + int8 quantization
-    engine = RN.make_engine(cfg, backend="winograd_int8", device=device,
-                            autotune=args.autotune, plan=plan)
-    model = RN.ResNet(cfg, params, state, engine)
-    packed = engine.prepare(RN.conv_layers(model))
-    print(f"[pack] {len(packed)} conv layers → int8 Winograd domain "
-          f"(widths {cfg.widths}, {args.base} base, device {device})")
-
-    # 2. calibrate — per-layer per-position input + Hadamard scales
-    with engine.calibration():
-        for step in range(args.calib_steps):
-            batch = cifar_batch_at(step, args.batch, seed=args.seed,
-                                   device=device)
-            model(batch["images"])
-    print(f"[calibrate] {args.calib_steps} batches × {args.batch}")
-    if args.autotune:
-        print("[autotune] K4 tiles: " + str(sorted(
-            {p.tile for p in engine.packed.values()}, key=str)))
-
-    # 3. checkpoint the serving state
-    path = save(ckpt_dir, 0, engine.export_state())
-    print(f"[checkpoint] packed+calibrated state → {path}")
+    # 0–3. (plan at the serving batch) → pack → calibrate (→ tune) →
+    #      checkpoint the serving state
+    model = RN.ResNet(cfg, params, state,
+                      RN.make_engine(cfg, backend="direct", device=device))
+    offline = build_checkpoint(args, cfg, model, plan_batch=args.batch,
+                               calib_batch=args.batch, device=device,
+                               ckpt_dir=ckpt_dir)
 
     # 4. serve from the checkpoint with fresh engines (the plan first,
     #    read without a template)
@@ -199,7 +158,7 @@ def _run(args, device: torch.device, ckpt_dir: str) -> dict:
         (f"fused serving adds error over staged vs the fp reference: "
          f"{err_fused:.4f} vs {err_staged:.4f}")
     np.testing.assert_array_less(err_fused, 1.0)
-    return {"packed_layers": len(packed), "fused_forwards": 1,
+    return {"packed_layers": offline["packed_layers"], "fused_forwards": 1,
             "plan": plan.describe() if plan is not None else None,
             "staged_forwards": 1, "dynamic_forwards": 1,
             "calib_forwards": args.calib_steps,

@@ -9,15 +9,17 @@ The counterpart of ``repro.launch.serve`` (single device):
 1. **offline** — random ResNet-18 weights from ``--seed``; with
    ``--plan`` a per-layer algorithm plan measured at the largest bucket
    (``conv.planner``); pack; calibrate (staged K1 → K2 → K3; with
-   ``--autotune`` K4's tiles are tuned there); checkpoint the packed,
-   calibrated, planned and tuned state.
+   ``--autotune`` K4's tiles are tuned there, at the calibration
+   batch's geometry); checkpoint the packed, calibrated, planned and
+   tuned state (``launch.offline``).
 2. **restore + warm up** — the plan is read back from the checkpoint
    without a template (``Plan.from_checkpoint``), a fresh engine built
-   with it imports the state, and every bucket runs once eagerly and is
-   captured into its CUDA graph (``ConvEngine.warmup``).
+   with it imports the state, and every bucket runs once eagerly (with
+   ``--autotune``, timing K4's tiles at each layer's T of the bucket)
+   and is captured into its CUDA graph (``ConvEngine.warmup``).
 3. **serve** — serve-alone baselines (largest bucket, then smallest),
    then Poisson load through ``serving.ServingLoop``: p50/p99 latency,
-   throughput, batch, padding and busy shares, and the captures after
+   throughput, batch, padding and in-flight shares, and the captures after
    warm-up, which must be 0. Served rows of a sample of batches in each
    bucket are held bit for bit against the model's eager forward of the
    same padded batch (a bucket the traffic left unused is served a burst
@@ -36,12 +38,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.checkpoint import restore, save
-from repro_torch.conv.planner import Plan, PlanEntry, build_plan
+from repro_torch.checkpoint.checkpoint import restore
+from repro_torch.conv.planner import Plan
 from repro_torch.core.quantization import QuantConfig
 from repro_torch.core.winograd import WinogradSpec
 from repro_torch.data.pipeline import cifar_batch_at
 from repro_torch.device import resolve_device
+from repro_torch.launch.offline import add_offline_args, build_checkpoint
 from repro_torch.models import resnet as RN
 from repro_torch.models.param import init_params
 from repro_torch.serving import (ServeConfig, ServingLoop, device_put,
@@ -49,15 +52,13 @@ from repro_torch.serving import (ServeConfig, ServingLoop, device_put,
                                  run_poisson_load, solo_latencies)
 from repro_torch.serving.metrics import device_busy
 
-__all__ = ["main", "parse_bits", "IMAGE_SHAPE"]
+__all__ = ["main", "IMAGE_SHAPE", "CHECK_BATCHES"]
 
 IMAGE_SHAPE = (32, 32, 3)
 
-
-def parse_bits(text: str) -> tuple:
-    """'none,8,9' → (None, 8, 9)."""
-    return tuple(None if b.strip().lower() == "none" else int(b)
-                 for b in text.split(","))
+#: Served batches per bucket whose rows are held bit for bit against the
+#: eager forward of the same padded batch.
+CHECK_BATCHES = 2
 
 
 def _args(argv):
@@ -78,31 +79,14 @@ def _args(argv):
     ap.add_argument("--solo-requests", type=int, default=8,
                     help="requests for each serve-alone baseline")
     ap.add_argument("--calib-steps", type=int, default=2)
-    ap.add_argument("--calib-batch", type=int, default=8)
+    ap.add_argument("--calib-batch", type=int, default=8,
+                    help="calibration batch size")
     ap.add_argument("--ckpt-dir", default=None,
                     help="checkpoint directory (default: a temporary "
                          "directory removed at exit)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights, images and arrivals")
-    ap.add_argument("--autotune", action="store_true",
-                    help="tune K4's block tile per layer shape at "
-                         "calibration; the tiles ride the checkpoint")
-    ap.add_argument("--plan", action="store_true",
-                    help="measure a per-layer algorithm plan at the "
-                         "largest bucket before packing; it rides the "
-                         "checkpoint into serving")
-    ap.add_argument("--plan-iters", type=int, default=5,
-                    help="timed calls per planner candidate")
-    ap.add_argument("--plan-tiles", default="2,4,6",
-                    help="Winograd output tiles the planner considers")
-    ap.add_argument("--plan-bases", default="canonical,legendre",
-                    help="polynomial bases the planner considers")
-    ap.add_argument("--plan-bits", default="none,8,9",
-                    help="Hadamard widths the planner considers ('none': "
-                         "the requant stage off)")
-    ap.add_argument("--check-batches", type=int, default=2,
-                    help="served batches per bucket whose rows are held "
-                         "bit for bit against the eager forward")
+    add_offline_args(ap, plan_at="the largest bucket")
     ap.add_argument("--trace-requests", type=int, default=0,
                     help="after the load, a second Poisson run of this "
                          "many requests under torch.profiler: the device's "
@@ -125,69 +109,14 @@ def main(argv: Optional[list] = None) -> dict:
     return _run(args, device, args.ckpt_dir)
 
 
-def _offline(args, cfg, model, buckets, device, ckpt_dir) -> dict:
-    """Plan → pack → calibrate (→ tune) → checkpoint. Returns the
-    offline part of the report and the restore template."""
-    out: dict = {}
-    plan = None
-    baseline = PlanEntry("winograd_int8", m=4, r=3, base=args.base,
-                         hadamard_bits=9)
-    if args.plan:
-        plan, _ = build_plan(
-            RN.layer_geoms(model.cfg, buckets[-1]), baseline=baseline,
-            tile_sizes=tuple(int(t) for t in args.plan_tiles.split(",")),
-            bases=tuple(args.plan_bases.split(",")),
-            hadamard_bits=parse_bits(args.plan_bits), device=device,
-            iters=args.plan_iters)
-        # the routes that differ from what the policy alone would serve
-        unplanned = RN.make_engine(cfg, backend="winograd_int8",
-                                   device=device)
-        differ = {}
-        for g in RN.layer_geoms(cfg, buckets[-1]):
-            e = plan.get(g.layer)
-            hand = (baseline if unplanned.backend_for(
-                g.layer, kernel_size=g.kernel_size, stride=g.stride,
-                in_channels=g.cin) == "winograd_int8" else PlanEntry())
-            if e != hand:
-                differ[g.layer] = f"{hand.describe()} → {e.describe()}"
-        out["plan"] = {"describe": plan.describe(),
-                       "entries": {l: e.describe()
-                                   for l, e in plan.entries.items()},
-                       "differs_from_baseline": differ}
-        print(f"[plan] {plan.describe()}; routes that differ from the "
-              f"baseline {baseline.describe()}: "
-              + (", ".join(f"{l} {d}" for l, d in differ.items())
-                 or "none"))
-    engine = RN.make_engine(cfg, backend="winograd_int8", device=device,
-                            autotune=args.autotune, plan=plan)
-    packed = engine.prepare(RN.conv_layers(model))
-    print(f"[pack] {len(packed)} conv layers → int8 Winograd domain "
-          f"(widths {cfg.widths}, device {device})")
-    with engine.calibration():
-        for step in range(args.calib_steps):
-            model(cifar_batch_at(step, args.calib_batch, seed=args.seed,
-                                 device=device)["images"], engine)
-    print(f"[calibrate] {args.calib_steps} batches × {args.calib_batch}")
-    out["packed_layers"] = len(packed)
-    if args.autotune:
-        tiles = {l: p.tile for l, p in engine.packed.items()}
-        out["tuned_tiles"] = tiles
-        print(f"[autotune] K4 tile per layer: "
-              + ", ".join(f"{l} {t}" for l, t in tiles.items()))
-    path = save(ckpt_dir, 0, engine.export_state())
-    print(f"[checkpoint] packed + calibrated state → {path}")
-    out["template"] = engine.state_template()
-    return out
-
-
 def _check_rows(model, engine, rows: dict, requests, batches,
-                checked: dict, per_bucket: int) -> None:
-    """Hold the served rows of up to ``per_bucket`` of ``batches`` in each
-    bucket bit for bit against the model's eager forward (no graph) of
+                checked: dict) -> None:
+    """Hold the served rows of up to ``CHECK_BATCHES`` of ``batches`` in
+    each bucket bit for bit against the model's eager forward (no graph) of
     the same padded batch; count them in ``checked`` ({bucket: n}).
     ``rows``: {rid: (request index, served row)}."""
     for b in batches:
-        if checked.get(b.bucket, 0) >= per_bucket:
+        if checked.get(b.bucket, 0) >= CHECK_BATCHES:
             continue
         idx = [rows[rid][0] for rid in b.rids]
         x = device_put(pad_batch(requests[idx], b.bucket), engine.device)
@@ -269,7 +198,9 @@ def _run(args, device: torch.device, ckpt_dir: str) -> dict:
     model = RN.ResNet(cfg, params, state, fp)
 
     # Offline (stage 1).
-    out = _offline(args, cfg, model, buckets, device, ckpt_dir)
+    out = build_checkpoint(args, cfg, model, plan_batch=buckets[-1],
+                           calib_batch=args.calib_batch, device=device,
+                           ckpt_dir=ckpt_dir)
     template = out.pop("template")
 
     # Online: restore → warm up (stage 2). The plan first, without a
@@ -278,7 +209,7 @@ def _run(args, device: torch.device, ckpt_dir: str) -> dict:
     if plan is not None:
         print(f"[plan] serving the checkpoint's plan: {plan.describe()}")
     served = RN.make_engine(cfg, backend="winograd_int8", device=device,
-                            plan=plan)
+                            plan=plan, autotune=args.autotune)
     tree, _ = restore(ckpt_dir, template)
     served.import_state(tree)
     served.serve_fn = RN.serving_forward(model, served)
@@ -291,6 +222,14 @@ def _run(args, device: torch.device, ckpt_dir: str) -> dict:
     for g, secs in loop.warmup_times.items():
         print(f"[warmup] geometry {g}: {secs:.3f}s (eager run + capture "
               f"+ replay)")
+    if args.autotune:
+        by_layer: dict = {}
+        for (layer, T), tile in sorted(served.tuned_tiles.items()):
+            by_layer.setdefault(layer, {})[T] = tile
+        out["warmup_tiles"] = by_layer
+        print("[autotune] K4 tile per layer at each served T, tuned at "
+              "warm-up: " + ", ".join(f"{l} {per}"
+                                      for l, per in by_layer.items()))
 
     # Serve-alone baselines through the same graphs.
     solo_imgs = cifar_batch_at(100, max(args.solo_requests, 1),
@@ -339,20 +278,19 @@ def _run(args, device: torch.device, ckpt_dir: str) -> dict:
     rows = {rid: (i, y) for i, (rid, y) in enumerate(zip(report.rids,
                                                          report.outputs))}
     checked: dict = {}
-    _check_rows(model, served, rows, requests, load_batches, checked,
-                args.check_batches)
+    _check_rows(model, served, rows, requests, load_batches, checked)
     for b in buckets:                  # buckets the traffic left unused
         for _ in range(3):
-            if checked.get(b, 0) >= min(args.check_batches, 1):
+            if checked.get(b, 0) >= 1:
                 break
             start = len(loop.batches)
             _burst(loop, requests, b, rows)
             _check_rows(model, served, rows, requests,
-                        loop.batches[start:], checked, args.check_batches)
+                        loop.batches[start:], checked)
     print(f"[serve] served rows bit for bit with the eager forward of the "
           f"same padded batch: batches checked per bucket {checked}")
     missing = [b for b in buckets if not checked.get(b)]
-    if args.check_batches and missing:
+    if missing:
         raise AssertionError(f"no served batch of bucket(s) {missing} "
                              f"could be checked")
     if args.trace_requests:
@@ -369,7 +307,7 @@ def _run(args, device: torch.device, ckpt_dir: str) -> dict:
         "p50_ms": report.p50_ms(), "p99_ms": report.p99_ms(),
         "mean_batch": report.mean_batch,
         "padding_frac": report.padding_frac,
-        "busy_frac": report.busy_frac, "wall_s": report.wall_s,
+        "in_flight_frac": report.in_flight_frac, "wall_s": report.wall_s,
         "compiles_after_warmup": report.compiles,
         "captures": fwd.captures,
         "batches_by_bucket": {b: sum(1 for r in load_batches

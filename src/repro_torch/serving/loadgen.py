@@ -17,7 +17,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.serving.metrics import percentile
+from repro_torch.serving.metrics import percentile, union_length
 
 __all__ = ["LoadReport", "run_poisson_load", "solo_latencies"]
 
@@ -31,7 +31,8 @@ class LoadReport:
     latencies_s: list            # per request, submit → delivery
     mean_batch: float            # real requests per dispatched batch
     padding_frac: float          # padded rows / dispatched rows
-    busy_frac: float             # dispatch → delivery share of the wall
+    in_flight_frac: float        # share of the wall with some batch
+                                 # between dispatch and delivery
     compiles: Optional[int]      # captures and kernel builds in the run
     rids: Optional[list] = None      # with keep_outputs: per request, in
     outputs: Optional[list] = None   # submission order, its id and row
@@ -52,7 +53,7 @@ class LoadReport:
                 f"p50 {self.p50_ms():.3f}ms p99 {self.p99_ms():.3f}ms, "
                 f"mean batch {self.mean_batch:.2f}, "
                 f"padding {self.padding_frac:.1%}, "
-                f"busy {self.busy_frac:.1%}, "
+                f"in flight {self.in_flight_frac:.1%}, "
                 f"compiles {self.compiles}")
 
 
@@ -95,7 +96,8 @@ def run_poisson_load(loop, rate_rps: float, n_requests: int,
         latencies_s=[r.latency_s for r in recs],
         mean_batch=real / max(len(batches), 1),
         padding_frac=0.0 if rows == 0 else 1.0 - real / rows,
-        busy_frac=loop.busy_fraction(wall),
+        in_flight_frac=union_length(
+            (b.t_dispatch, b.t_done) for b in batches) / wall,
         compiles=loop.compiles_after_warmup,
         rids=[f.rid for f in futures] if keep_outputs else None,
         outputs=outputs if keep_outputs else None)

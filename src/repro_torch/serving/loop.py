@@ -310,20 +310,6 @@ class ServingLoop:
         with self._lock:
             self._outstanding -= n
 
-    # -- reporting ----------------------------------------------------------
-
-    def busy_fraction(self, wall_s: float) -> float:
-        """Share of ``wall_s`` in which some batch was between dispatch
-        and delivery, on the host's clock (the union of those intervals,
-        so overlapping batches count once): an upper estimate of the
-        device's busy share."""
-        busy, prev_done = 0.0, -float("inf")
-        for b in self.batches:
-            start = max(b.t_dispatch, prev_done)
-            busy += max(0.0, b.t_done - start)
-            prev_done = max(prev_done, b.t_done)
-        return 0.0 if wall_s <= 0 else min(1.0, busy / wall_s)
-
 
 def _stage_rows(y, n: int):
     """The first ``n`` rows of a forward's result, copied into memory of

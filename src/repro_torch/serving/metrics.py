@@ -2,8 +2,9 @@
 
 The port's copy of ``repro.serving.metrics``: one implementation shared
 by the load generator and the serving launcher, so a "p99" means the
-same number in both. ``device_busy`` reads the device's busy share from a
-``torch.profiler`` trace. Pure Python on sorted copies — sample counts
+same number in both. ``union_length`` measures intervals that may
+overlap; ``device_busy`` reads the device's busy share from a
+``torch.profiler`` trace with it. Pure Python on sorted copies — sample counts
 here are thousands at most, and exact interpolation semantics matter
 more than speed (the unit tests pin them against numpy's default
 ``linear`` method).
@@ -12,7 +13,8 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
-__all__ = ["percentile", "p50", "p99", "latency_histogram", "device_busy"]
+__all__ = ["percentile", "p50", "p99", "latency_histogram", "union_length",
+           "device_busy"]
 
 
 def percentile(xs: Sequence[float], q: float) -> float:
@@ -67,6 +69,20 @@ def latency_histogram(xs: Sequence[float], bins: int = 10,
     return edges, counts
 
 
+def union_length(spans) -> float:
+    """Length of the union of ``(start, end)`` intervals: where they
+    overlap, the time counts once."""
+    total, cur0, cur1 = 0.0, None, None
+    for t0, t1 in sorted(spans):
+        if cur1 is None or t0 > cur1:
+            if cur1 is not None:
+                total += cur1 - cur0
+            cur0, cur1 = t0, t1
+        else:
+            cur1 = max(cur1, t1)
+    return total if cur1 is None else total + cur1 - cur0
+
+
 def device_busy(prof) -> tuple[float, float]:
     """(busy ms, window ms) of a ``torch.profiler`` trace: busy is the
     union of the device's intervals (kernels, copies), so that kernels
@@ -82,14 +98,5 @@ def device_busy(prof) -> tuple[float, float]:
             spans.append((t0, t1))
     if not spans:
         return 0.0, 0.0
-    spans.sort()
-    busy, cur0, cur1 = 0.0, spans[0][0], spans[0][1]
-    for t0, t1 in spans[1:]:
-        if t0 > cur1:
-            busy += cur1 - cur0
-            cur0, cur1 = t0, t1
-        else:
-            cur1 = max(cur1, t1)
-    busy += cur1 - cur0
-    window = max(t1 for _, t1 in spans) - min(first, spans[0][0])
-    return busy / 1e3, window / 1e3
+    window = max(t1 for _, t1 in spans) - min(first, min(spans)[0])
+    return union_length(spans) / 1e3, window / 1e3

@@ -9,28 +9,27 @@ ResNet serving, the hypothesis fuzzer), the rest taking seconds. With
 ``--dist load`` xdist gives every worker a first run of N // 24
 consecutive tests, so a whole module of long tests could queue on one
 worker, and where the batch boundaries fell moved with the test count N.
-Here the known long tests start first, longest first, one to each worker
-with a short test behind it; after that a worker that finishes a test
-gets one more: a long one while any waits, else the next one of the
-module it is in, else the first one waiting, so no worker holds more
-than one test beyond the one it runs and tests of a module mostly share
-a worker's compiled programs. Tests
-of a module with module-scoped fixtures go to one worker together, so
-those fixtures are built once. At most ``SUBPROCESS_LANES`` subprocess
-tests run at a time (each runs an 8-device XLA process beside the
-workers; their own timeouts are 420 s and 560 s), and ``EXCLUSIVE``
-tests run with no other subprocess test beside them. The order is a
-fixed function of the collected items, the same on every worker, as
-xdist requires.
+Here the known long tests come first, longest first, and xdist hands a
+worker one test at a time (a worker runs a test once it holds the next
+one, so it holds two): behind a long test a short one, so no long test
+waits behind another; else a long test while one waits; else the next
+test of the worker's module, whose compiled programs it holds; else the
+first waiting. A module of ``GROUPED_MODULES`` goes to one worker whole,
+so its module-scoped fixtures are built once. At most
+``SUBPROCESS_LANES`` workers hold subprocess tests at a time (each runs
+an 8-device XLA process beside the workers; their own timeouts are 420 s
+and 560 s), and while an ``EXCLUSIVE`` one runs no other subprocess
+test and no other long test starts. The order is a fixed function of
+the collected items, the same on every worker, as xdist requires.
 
-Why the priorities: the subprocess tests have wall-clock timeouts and
-the hypothesis fuzzer is the longest test, and beside five busy workers
-they ran slower than alone (the sharded fused-serving parity test took
-358 s alone and hit its 420 s timeout beside them). Each xdist worker
-therefore runs at ``os.nice(WORKER_NICE)``, and returns to the normal
-priority for a test in ``PRIORITY_MODULES`` or ``PRIORITY_TESTS`` (its
-subprocess inherits it) where the process may raise its priority again;
-the other tests take the cores those leave.
+Why the priorities: the subprocess tests have wall-clock timeouts, and
+the hypothesis fuzzer is the longest test and so the run's floor; beside
+five busy workers both ran slower than alone (the fuzzer did not end in
+the 1,470 s the whole run may take). Where a worker may raise its
+priority again (CAP_SYS_NICE), it runs at ``os.nice(WORKER_NICE)`` and
+returns to the normal priority for a test in ``PRIORITY_MODULES`` or
+``PRIORITY_TESTS`` (its subprocess inherits it); the other tests take
+the cores those leave.
 
 Why the release: every XLA CPU executable a process keeps holds memory
 maps of its own, and a process past the kernel's limit on maps (65,530
@@ -52,28 +51,24 @@ LONG_TESTS = (
     "tests/test_differential.py::test_differential_parity_hypothesis",
     "tests/test_distributed.py::test_sharded_fused_serving_parity",
     "tests/test_conv_engine.py::test_resnet_int8_serving",
-    "tests/test_distributed.py::test_sharded_export_restore_serve_under_mesh",
+    "tests/test_distributed.py::"
+    "test_sharded_export_restore_serve_under_mesh",
     "tests/test_distributed.py::test_one_xq_across_modes_and_f63_sharded",
     "tests/test_serving.py::test_padded_parity_bitwise_conv_engine[legendre]",
     "tests/test_distributed.py::test_tp_f63_and_small_slab_regression",
     "tests/test_distributed.py::test_tp_reshard_on_restore",
-    "tests/test_distributed.py::test_planned_checkpoint_restores_into_mesh_engine",
+    "tests/test_distributed.py::"
+    "test_planned_checkpoint_restores_into_mesh_engine",
     "tests/test_distributed.py::test_tp_2d_sharded_parity_sweep",
 )
 
-#: Modules whose tests run a multi-device XLA subprocess each.
+#: Modules whose tests run a multi-device XLA subprocess each, and how
+#: many workers may hold such a test at once.
 SUBPROCESS_MODULES = ("tests/test_distributed.py",)
 SUBPROCESS_LANES = 2
-#: Subprocess tests that run with no other beside them (closest to their
-#: timeout).
+#: Subprocess tests during which no other subprocess test and no other
+#: long test starts (closest to their timeout).
 EXCLUSIVE = ("tests/test_distributed.py::test_sharded_fused_serving_parity",)
-
-#: Tests that run at the normal priority while the other tests of a
-#: worker run below it (see the module docstring).
-PRIORITY_MODULES = SUBPROCESS_MODULES
-PRIORITY_TESTS = (
-    "tests/test_differential.py::test_differential_parity_hypothesis",)
-WORKER_NICE = 10
 
 #: Modules whose tests share module-scoped fixtures (a JAX compile of
 #: their references): handed to one worker together.
@@ -84,6 +79,13 @@ GROUPED_MODULES = (
     "tests/test_torch_train.py",
 )
 
+#: Tests that run at the normal priority while the other tests of a
+#: worker run at ``WORKER_NICE`` (see the module docstring).
+PRIORITY_MODULES = SUBPROCESS_MODULES
+PRIORITY_TESTS = (
+    "tests/test_differential.py::test_differential_parity_hypothesis",)
+WORKER_NICE = 10
+
 #: Memory maps past which a worker drops JAX's compiled programs after a
 #: test module (about half the kernel's default limit).
 MAPS_RELEASE = 32000
@@ -92,31 +94,36 @@ MAPS_RELEASE = 32000
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "gpu: needs a CUDA card (sm_90a) and nvcc; skips without")
-    if hasattr(config, "workerinput"):          # an xdist worker
-        os.nice(WORKER_NICE)
+    if hasattr(config, "workerinput") and _may_raise_priority():
+        os.nice(WORKER_NICE)                    # an xdist worker
 
 
-def _set_priority(nice: int) -> None:
+def _may_raise_priority() -> bool:
+    """Whether this process may lower its nice value again
+    (CAP_SYS_NICE): without it a worker keeps the normal priority, as a
+    niced worker could not return to it for a priority test."""
     try:
-        os.setpriority(os.PRIO_PROCESS, 0, nice)
-    except (OSError, AttributeError):   # not permitted: keep the priority
-        pass
+        with open("/proc/self/status") as f:
+            caps = next(line for line in f if line.startswith("CapEff:"))
+        return bool(int(caps.split()[1], 16) >> 23 & 1)
+    except (OSError, StopIteration, ValueError, IndexError):
+        return False
 
 
 @pytest.hookimpl(hookwrapper=True)
 def pytest_runtest_protocol(item, nextitem):
-    """A priority test runs at the normal priority (see the module
-    docstring)."""
-    raise_it = hasattr(item.config, "workerinput") and (
+    """A priority test runs at the normal priority, and its subprocess
+    inherits it (see the module docstring)."""
+    raise_it = os.getpriority(os.PRIO_PROCESS, 0) > 0 and (
         item.nodeid in PRIORITY_TESTS
         or _module(item.nodeid) in PRIORITY_MODULES)
     if raise_it:
-        _set_priority(0)
+        os.setpriority(os.PRIO_PROCESS, 0, 0)
     try:
         yield
     finally:
         if raise_it:
-            _set_priority(WORKER_NICE)
+            os.setpriority(os.PRIO_PROCESS, 0, WORKER_NICE)
 
 
 def pytest_collection_modifyitems(session, config, items):
@@ -133,8 +140,12 @@ def _module(nodeid: str) -> str:
 @pytest.hookimpl(optionalhook=True)
 def pytest_xdist_make_scheduler(config, log):
     """Under ``--dist load``, the hand-out of the module docstring; other
-    ``--dist`` modes keep xdist's own scheduler."""
-    if config.getoption("dist") != "load":
+    ``--dist`` modes, and xdist releases other than 3.x (whose
+    ``LoadScheduling`` keeps ``pending``, ``node2pending`` and
+    ``collection`` as used here), keep xdist's own scheduler."""
+    import xdist
+    if config.getoption("dist") != "load" or \
+            not xdist.__version__.startswith("3."):
         return None
     from xdist.scheduler import LoadScheduling
 
@@ -143,96 +154,55 @@ def pytest_xdist_make_scheduler(config, log):
             super().__init__(config, log)
             self.maxschedchunk = 1
 
-        def schedule(self):
-            """The first hand-out: the first tests in order, one to each
-            worker, then a short test to each to wait behind it (a worker
-            runs a test once it holds the next one)."""
-            if self.collection is not None or \
-                    not self._check_nodes_have_same_collection():
-                return super().schedule()
-            self.collection = next(iter(self.node2collection.values()))
-            self.pending[:] = range(len(self.collection))
-            nodes = list(self.nodes)
-            if len(self.pending) < 2 * len(nodes):
-                self.collection = None
-                return super().schedule()
-            for node in nodes:
-                self._send_tests(node, 1)
-            for node in nodes:
-                short = next((i for i in self.pending
-                              if self.collection[i] not in LONG_TESTS
-                              and _module(self.collection[i])
-                              not in GROUPED_MODULES + SUBPROCESS_MODULES),
-                             None)
-                if short is not None:
-                    self._send(node, [short])
+        def _pick(self, node) -> list:
+            """The tests to send ``node`` next (see the module
+            docstring)."""
+            ids = self.collection
+            held = self.node2pending[node]
+            lanes = [[ids[i] for i in p
+                      if _module(ids[i]) in SUBPROCESS_MODULES]
+                     for n, p in self.node2pending.items() if n is not node]
+            lanes = [ls for ls in lanes if ls]
+            quiet = any(x in EXCLUSIVE for ls in lanes for x in ls)
 
-        def _send(self, node, indices):
-            for i in indices:
-                self.pending.remove(i)
-            self.node2pending[node].extend(indices)
-            node.send_runtest_some(indices)
-
-        def _allowed(self, node, i) -> bool:
-            """Whether test ``i`` may go to ``node`` now: a subprocess
-            test only while fewer than ``SUBPROCESS_LANES`` workers hold
-            one (a worker runs its tests one after another: this one's
-            count once), and none beside an ``EXCLUSIVE`` one."""
-            nodeid = self.collection[i]
-            if _module(nodeid) not in SUBPROCESS_MODULES:
-                return True
-            lanes = {n: [self.collection[j] for j in p
-                         if _module(self.collection[j])
-                         in SUBPROCESS_MODULES]
-                     for n, p in self.node2pending.items()}
-            held = [ids for ids in lanes.values() if ids]
-            if any(x in EXCLUSIVE for ids in held for x in ids):
-                return False
-            if nodeid in EXCLUSIVE:
-                return not held
-            return bool(lanes[node]) or len(held) < SUBPROCESS_LANES
+            def allowed_now(i):
+                nodeid = ids[i]
+                if quiet and nodeid in LONG_TESTS:
+                    return False
+                if _module(nodeid) not in SUBPROCESS_MODULES:
+                    return True
+                if quiet:
+                    return False
+                if nodeid in EXCLUSIVE:
+                    return not lanes
+                return len(lanes) < SUBPROCESS_LANES
+            allowed = ([i for i in self.pending if allowed_now(i)]
+                       or self.pending[:1])
+            if held and ids[held[-1]] in LONG_TESTS:
+                pick = next((i for i in allowed if ids[i] not in LONG_TESTS
+                             and _module(ids[i]) not in GROUPED_MODULES),
+                            allowed[0])
+            else:
+                here = _module(ids[held[-1]]) if held else None
+                pick = next((i for i in allowed if ids[i] in LONG_TESTS),
+                            None)
+                if pick is None:
+                    pick = next((i for i in allowed
+                                 if _module(ids[i]) == here), allowed[0])
+            module = _module(ids[pick])
+            if module in GROUPED_MODULES:
+                return [i for i in self.pending if _module(ids[i]) == module]
+            return [pick]
 
         def _send_tests(self, node, num):
-            if not self.pending or self.collection is None:
-                return super()._send_tests(node, num)
             for _ in range(num):
                 if not self.pending:
                     return
-                held = self.node2pending[node]
-                here = _module(self.collection[held[-1]]) if held else None
-                allowed = [i for i in self.pending
-                           if self._allowed(node, i)]
-                if not allowed:
-                    if len(held) != 1:
-                        return
-                    # a worker runs its test only once it holds the next:
-                    # never leave one holding a single test
-                    allowed = self.pending[:1]
-                # a long test first; else the next test of this worker's
-                # module; else the first waiting
-                pick = next((i for i in allowed
-                             if self.collection[i] in LONG_TESTS), None)
-                if pick is None:
-                    pick = next((i for i in allowed
-                                 if _module(self.collection[i]) == here),
-                                allowed[0])
-                module = _module(self.collection[pick])
-                if module in GROUPED_MODULES:
-                    self._send(node, [i for i in self.pending
-                                      if _module(self.collection[i])
-                                      == module])
-                    return
-                self._send(node, [pick])
-
-        def check_schedule(self, node, duration=0):
-            super().check_schedule(node, duration)
-            # a worker left with nothing allowed waits; wake the others'
-            # hand-outs when a subprocess test ends
-            if self.pending and node.shutting_down is False:
-                for other in self.nodes:
-                    if other is not node and \
-                            len(self.node2pending[other]) < 2:
-                        super().check_schedule(other)
+                picks = self._pick(node)
+                for i in picks:
+                    self.pending.remove(i)
+                self.node2pending[node].extend(picks)
+                node.send_runtest_some(picks)
 
     return OneAtATime(config, log)
 

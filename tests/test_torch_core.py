@@ -74,14 +74,15 @@ def _port_modules():
 
 def test_port_imports_neither_jax_nor_repro():
     mods = _port_modules()
-    assert "repro_torch.kernels.ops" in mods and len(mods) >= 38
+    assert "repro_torch.kernels.ops" in mods and len(mods) >= 39
     assert {"repro_torch.kernels.q8_matmul", "repro_torch.optim.optimizer",
             "repro_torch.launch.train_resnet_qat",
             "repro_torch.core.quantization", "repro_torch.analysis.ranges",
             "repro_torch.analysis.certify", "repro_torch.conv.autotune",
             "repro_torch.conv.planner", "repro_torch.serving.loop",
             "repro_torch.serving.graphs", "repro_torch.serving.loadgen",
-            "repro_torch.launch.serve"} <= set(mods)
+            "repro_torch.launch.serve", "repro_torch.launch.offline"
+            } <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -521,6 +521,10 @@ def test_serve_launcher_captures_nothing_after_warmup_on_card():
     assert sum(out["replays"].values()) >= sum(
         out["batches_by_bucket"].values())
     assert set(out["tuned_tiles"].values()) <= {(32, 32), (16, 32)}
+    # buckets 1 and 4 tuned at warm-up, bucket 16 at calibration
+    for layer, per in out["warmup_tiles"].items():
+        assert len(per) == 2 and out["tuned_at_T"][layer] not in per
+        assert set(per.values()) <= {(32, 32), (16, 32)}
 
 
 @pytest.mark.parametrize("m", [2, 4, 6])

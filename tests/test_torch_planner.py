@@ -34,7 +34,6 @@ from repro_torch.analysis import certify as tcertify
 from repro_torch.analysis.ranges import certify_config
 from repro_torch.checkpoint import checkpoint as tckpt
 from repro_torch.conv import ConvEngine, ConvPolicy, autotune
-from repro_torch.conv.packing import K4_TILE_TAG
 from repro_torch.conv.planner import (CandidateCost, LayerGeom, Plan,
                                       PlanEntry, build_plan,
                                       candidate_entries, measure_layer,
@@ -331,18 +330,26 @@ def test_autotune_tile_filter_and_leaf():
     res = autotune.autotune_blocks(_spec(), 64, 8, 12, hadamard_bits=9,
                                    device="cpu")
     assert res.tile == fused_tile(6, 64, 12, True) and not res.measured
-    # the leaf: the port's encoding, and the JAX package's blocks refused
-    from repro_torch.conv.packing import tile_from_leaf, tile_leaf
+    # the leaf: the port's encoding with the T the tile was timed at, and
+    # the JAX package's blocks refused
+    from repro_torch.conv.packing import (PackedWinogradWeights,
+                                          tile_from_leaf, tile_leaf)
     for t in TILES:
-        leaf = tile_leaf(t)
-        assert leaf.tolist() == [-t[0], -t[1], K4_TILE_TAG]
-        assert tile_from_leaf(leaf) == t
+        leaf = tile_leaf(t, 144)
+        assert leaf.tolist() == [-t[0], -t[1], -144]
+        assert tile_from_leaf(leaf) == (t, 144)
+        pk = PackedWinogradWeights(u_q=None, w_scales=None, blocks=leaf)
+        assert pk.tuned == (t, 144) and pk.tile_at(144) == t
+        assert pk.tile_at(36) is None and pk.tile_at(576) is None
     for jax_blocks in ([32, 32, 32], [16, 32, 64], [128, 128, 256],
-                       [-1, -1, -1], [-32, -32, -1], [-8, -32, -2]):
+                       [-1, -1, -1], [-8, -32, -2], [32, 32, -64]):
         assert tile_from_leaf(torch.tensor(jax_blocks, dtype=torch.int32)) \
             is None, jax_blocks
+    assert PackedWinogradWeights(u_q=None, w_scales=None).tile_at(1) is None
     with pytest.raises(ValueError, match="no tile"):
-        tile_leaf((8, 8))
+        tile_leaf((8, 8), 144)
+    with pytest.raises(ValueError, match="T >= 1"):
+        tile_leaf(TILES[0], 0)
 
 
 def test_autotuned_planned_checkpoint_round_trips_the_blocks_leaf(tmp_path):
@@ -352,8 +359,8 @@ def test_autotuned_planned_checkpoint_round_trips_the_blocks_leaf(tmp_path):
     with torch.inference_mode(), eng.calibration():
         for l in "abc":
             eng.conv2d(torch.from_numpy(data[l][0]), None, layer=l)
-    tiles = {l: p.tile for l, p in eng.packed.items()}
-    assert all(t in TILES for t in tiles.values()), tiles
+    tiles = {l: p.tuned for l, p in eng.packed.items()}
+    assert all(t[0] in TILES and t[1] > 0 for t in tiles.values()), tiles
     state = eng.export_state()
     tckpt.save(str(tmp_path), 0, state)
     assert Plan.from_checkpoint(str(tmp_path)) == Plan(PLAN)
@@ -363,12 +370,46 @@ def test_autotuned_planned_checkpoint_round_trips_the_blocks_leaf(tmp_path):
     served.import_state(tree)
     for l, p in served.packed.items():
         assert torch.equal(p.blocks, state["packed"][l]["blocks"]), l
-        assert p.tile == tiles[l]
+        assert p.tuned == tiles[l]
     with torch.inference_mode():
         for l in "abc":
             x = torch.from_numpy(data[l][0])
             assert torch.equal(served.conv2d(x, None, layer=l),
                                eng.conv2d(x, None, layer=l)), l
+
+
+def test_engine_serves_the_tuned_tile_only_at_its_T(monkeypatch):
+    """The tuned tile is K4's tile only at the T it was timed at (the
+    calibration batch's); a batch of another size gets None, that is
+    ``fused_tile``'s choice for its own shape, until ``warmup`` tunes
+    that T."""
+    import repro_torch.conv.engine as E
+    seen = []
+    real = E.winograd_conv2d_int8
+
+    def spy(*args, **kw):
+        seen.append(kw.get("tile"))
+        return real(*args, **kw)
+    monkeypatch.setattr(E, "winograd_conv2d_int8", spy)
+    eng = _engine(autotune=True)
+    x, w = _data(7)                       # N = 2, 10×10 → T = 2·3·3 = 18
+    eng.prepare([("c", torch.from_numpy(w))])
+    with torch.inference_mode():
+        with eng.calibration():
+            eng.conv2d(torch.from_numpy(x), None, layer="c")
+        tile, T = eng.packed["c"].tuned
+        assert T == 18 and tile in TILES
+        eng.conv2d(torch.from_numpy(x), None, layer="c")
+        eng.conv2d(torch.from_numpy(x[:1]), None, layer="c")
+    assert seen == [tile, None]
+    # warm-up with autotune tunes the other T (on the CPU: the default,
+    # unmeasured) and later calls at it take that tile
+    eng.warmup([(1, 10, 10, 8)],
+               forward=lambda x: eng.conv2d(x, None, layer="c"))
+    assert eng.tuned_tiles == {("c", 9): fused_tile(6, 9, 12, True)}
+    with torch.inference_mode():
+        eng.conv2d(torch.from_numpy(x[:1]), None, layer="c")
+    assert seen[2:] == [fused_tile(6, 9, 12, True)] * 2
 
 
 def _jax_engine(plan):
@@ -405,7 +446,7 @@ def test_jax_checkpoint_routes_the_same_in_the_port(tmp_path):
     eng.import_state(tree)
     assert _routes(eng, PLAN) == _routes(jeng, PLAN)
     for l, pk in eng.packed.items():
-        assert pk.blocks.tolist() == [32, 32, 64] and pk.tile is None, l
+        assert pk.blocks.tolist() == [32, 32, 64] and pk.tuned is None, l
         np.testing.assert_array_equal(pk.u_q.numpy(),
                                       np.asarray(jeng.packed[l].u_q))
     with torch.inference_mode():

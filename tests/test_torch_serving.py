@@ -244,7 +244,7 @@ def test_poisson_load_report_and_solo_baseline():
     assert rep.n_requests == 20 and len(rep.latencies_s) == 20
     assert rep.throughput_rps > 0 and 0.0 <= rep.padding_frac < 1.0
     assert rep.p50_ms() <= rep.p99_ms() and rep.mean_batch >= 1.0
-    assert 0.0 < rep.busy_frac <= 1.0
+    assert 0.0 < rep.in_flight_frac <= 1.0
     assert sum(b.n for b in loop.batches) == 20
     for i, (rid, y) in enumerate(zip(rep.rids, rep.outputs)):
         np.testing.assert_array_equal(y, i + 1.0)
@@ -269,6 +269,32 @@ def test_serve_launcher_end_to_end_on_cpu():
                                        out["rows_checked"].values())
     assert 0.0 <= out["padding_frac"] < 1.0 and out["p50_ms"] > 0
     assert set(out["tuned_tiles"].values()) <= {(16, 32), (32, 32)}
+    # bucket 2 is the calibration batch; warm-up tunes bucket 1's T
+    assert set(out["warmup_tiles"]) == set(out["tuned_tiles"])
+    for layer, per in out["warmup_tiles"].items():
+        assert len(per) == 1 and out["tuned_at_T"][layer] not in per
+        assert set(per.values()) <= {(16, 32), (32, 32)}
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve.main(["--width", "0.125", "--buckets", "1,2"])
+
+
+def test_in_flight_share_counts_only_the_runs_own_batches():
+    """A second load on the same loop reports the share of its own wall
+    that its own batches spent between dispatch and delivery."""
+    from repro_torch.serving.metrics import union_length
+    assert union_length([(0.0, 2.0), (1.0, 3.0), (5.0, 6.0)]) == 4.0
+    assert union_length([]) == 0.0
+    loop = _loop(FakeForward(delay_s=0.005), max_wait_ms=10.0).start()
+    reps, firsts = [], []
+    for seed in (1, 2):
+        firsts.append(len(loop.batches))
+        reps.append(run_poisson_load(
+            loop, rate_rps=400.0, n_requests=12,
+            make_request=lambda i: np.full((4,), i, np.float32), seed=seed))
+    loop.shutdown()
+    own = loop.batches[firsts[1]:]
+    assert sum(b.n for b in own) == 12
+    assert reps[1].in_flight_frac == pytest.approx(union_length(
+        (b.t_dispatch, b.t_done) for b in own) / reps[1].wall_s)
+    assert all(0.0 < r.in_flight_frac <= 1.0 for r in reps)
