@@ -38,8 +38,9 @@ fails the run:
 4. main     — ``repro_torch.launch.infer_resnet`` at width 1.0, batch
               256, 2 calibration steps: pack → calibrate → checkpoint →
               restore → serve fused and staged, its fused-vs-staged gate
-              against the fp32 ``winograd_fp`` network; launch counts read
-              around it (K1–K4 > 0, K4 14 per fused forward); then
+              against the fp32 ``winograd_fp`` network, then stage 5's
+              1-device mesh; launch counts read around it (K1–K4 > 0, K4
+              14 per fused forward); then
               ``ops.q8_linear`` over the seven projections of one
               llama3.2-1b layer at M = 2048, its K5 launches read around
               it and its error against fp32 ``x @ w`` gated;
@@ -70,7 +71,24 @@ fails the run:
               each bucket serves (tuned at calibration for bucket 256,
               at warm-up for the others); and the padded-parity
               check on the card: one int8 Winograd layer, a row served in
-              a zero-padded bucket bit for bit the row served alone.
+              a zero-padded bucket bit for bit the row served alone;
+8. sharded  — sharded int8 serving over data × model meshes laid over the
+              one card (``--host-devices``): per layer (the stem, Cin = 3,
+              and an s0 conv, Cout 64: 32 a model shard), B = 256, F(4,3)
+              in both bases, Hadamard off/8/9, on meshes (1,1), (2,1),
+              (4,1), (1,2) and (2,2), plus the (4,2) mesh's 5-row slabs,
+              ``ops.execute_int8_sharded`` bit for bit with single-device
+              fused (calibrated) and staged (dynamic requant);
+              ``repro_torch.launch.infer_resnet --host-devices 4`` at
+              width 1.0, B = 256: stage 5's sharded logits bit for bit
+              with single-device fused and its 0.05 gate, launches read
+              around it; CUDA-event ms per forward on each mesh beside
+              single-device fused, and per layer the slab copies, the
+              gathers and the sharded call against the single-device
+              call; ``launch/serve`` through a 2 × 2 mesh on the card
+              (1,024 Poisson requests at a quarter of the mesh's eager
+              bucket-64 images/s) with the serving gates; padded parity
+              on a 2 × 2 mesh.
 
 Phase 5's device-busy share is the union of the trace's device intervals
 over the traced window, so it cannot pass 100 %.
@@ -101,6 +119,7 @@ FP32_FLOP_S = 67e12
 FP32_INSTR_S = FP32_FLOP_S / 2
 
 BATCH = 256
+WIDTH = 1.0
 # The 14 Winograd convs of one ResNet-18 forward at width 1.0, 32x32:
 # (name, tiles T, Cin, Cout, spatial H, count per forward)
 LAYERS = [("stem", 64 * BATCH, 3, 64, 32, 1),
@@ -168,6 +187,17 @@ K3_EDGES = [(4, "legendre", 9, 1000, 45),
             (6, "canonical", None, 1000, 19)]
 # K2 with saturated operands: P, M, K, N (|acc| past 2^24)
 K2_SATURATED = [(16, 300, 1200, 64), (36, 100, 1100, 45)]
+# Sharded serving (phase 8): meshes (data, model) over the one card
+SHARD_MESHES = ((1, 1), (2, 1), (4, 1), (1, 2), (2, 2))
+SHARD_HOST_DEVICES = 4
+# Layers held bit for bit across the meshes, (name, input NHWC, Cout):
+# the stem's Cin = 3 byte path, and an s0 conv whose Cout 64 leaves 32
+# a shard at a model extent of 2; then the JAX package's small-slab
+# regression: T = 18 tiles over a (4, 2) mesh, 5-row slabs.
+SHARD_LAYERS = (("stem", (BATCH, 32, 32, 3), 64),
+                ("s0", (BATCH, 32, 32, 64), 64))
+SMALL_SLAB = ((2, 12, 12, 4), 8, (4, 2))
+SHARD_SERVE_REQUESTS = 1024
 
 
 def fail(msg: str) -> None:
@@ -207,6 +237,46 @@ def kernel_device_ms(fn, kernel: str, iters: int = 20) -> float:
         torch.cuda.synchronize()
     return sum(v for k, v in device_ms_by_kernel(prof, iters).items()
                if kernel in k)
+
+
+def graph_ms(fn, iters: int = 20) -> tuple:
+    """``fn()`` captured into a CUDA graph (after two calls on a side
+    stream): the mean CUDA-event time of a replay over ``iters``, its
+    device time without the host's enqueue, and the graph."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return time_ms(g.replay, iters=iters, warmup=2), g
+
+
+def replay_profile(g, iters: int = 10) -> dict:
+    """A CUDA graph's replays under ``torch.profiler``, per replay: the
+    device's busy time (union of its intervals), the window, the count of
+    device intervals and the time by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.metrics import device_busy
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            g.replay()
+        torch.cuda.synchronize()
+    busy, window = device_busy(prof)
+    from torch.autograd import DeviceType
+    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    by_kernel = device_ms_by_kernel(prof, iters)
+    return {"busy_ms": busy / iters, "window_ms": window / iters,
+            "kernels": n / iters,
+            "top_ms": dict(sorted(by_kernel.items(),
+                                  key=lambda kv: -kv[1])[:12])}
 
 
 def device_ms_by_kernel(prof, per: int = 1) -> dict:
@@ -399,6 +469,350 @@ def k3_ops(n: int, m: int, cinvt, changes_base: bool) -> int:
 def input_ops(n: int, changes_base: bool) -> int:
     """fp32 multiplies and adds of K1's sandwiches per (tile, channel)."""
     return sandwich_ops(n, n) * (2 if changes_base else 1)
+
+
+def infer_launches(out: dict) -> dict:
+    """The launches one ``infer_resnet`` run must make: 14 Winograd convs
+    a forward; calibration and staged/dynamic serving run K1 → K2 → K3,
+    fused serving K1 → K4, and each stage-5 mesh K1 once and K4 once per
+    slab a layer."""
+    staged = out["calib_forwards"] + out["staged_forwards"] + \
+        out["dynamic_forwards"]
+    fw = out["sharded_forwards_per_mesh"]
+    slabs = sum(a * b for a, b in (r["mesh"] for r in out["sharded"]))
+    return {"input_transform": 14 * (staged + out["fused_forwards"]
+                                     + fw * len(out["sharded"])),
+            "wino_gemm": 14 * staged, "output_transform": 14 * staged,
+            "fused_gemm_output": 14 * (out["fused_forwards"] + fw * slabs),
+            "q8_matmul": 0}
+
+
+def sharded_phase(dev) -> tuple:
+    """Phase 8 (see the module docstring). Returns its report and the
+    launches of its two main-path runs (stage 5 of ``infer_resnet`` and
+    the ``launch/serve`` load)."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.checkpoint import restore
+    from repro_torch.conv import ConvEngine, ConvPolicy
+    from repro_torch.core.quantization import QuantConfig
+    from repro_torch.core.winograd import WinogradSpec
+    from repro_torch.data.pipeline import cifar_batch_at
+    from repro_torch.distributed.sharding import Placed, gather, shard
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch import infer_resnet, serve
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import resnet as RN
+    from repro_torch.models.param import init_params
+    from repro_torch.serving import serve_padded
+
+    rep: dict = {}
+    gen = torch.Generator().manual_seed(8)
+
+    # per layer, bit for bit on every mesh
+    def layer_checks(name, xshape, cout, meshes, host):
+        x = torch.randn(xshape, generator=gen).to(dev)
+        w = (torch.randn((3, 3, xshape[3], cout), generator=gen)
+             * 0.1).to(dev)
+        n_checked = 0
+        for base in ("canonical", "legendre"):
+            spec0 = WinogradSpec(m=4, r=3, base=base)
+            u_q, w_s = ops.prepare_weights_int8(w, spec0)
+            tiles = ops._extract(x, 4, 3, spec0.n, "same")
+            geom = ops._geometry(x.shape, 4, 3, "same")
+            in_s = ops.scales_from_abs_max(ops._tiles_abs_max(tiles, spec0))
+            for bits in (None, 8, 9):
+                spec = WinogradSpec(m=4, r=3, base=base,
+                                    quant=QuantConfig(hadamard_bits=bits))
+                h = None
+                if bits is not None:
+                    _, a = ops.execute_int8(tiles, u_q, w_s, in_s, spec=spec,
+                                            geom=geom, hadamard_bits=bits,
+                                            with_stats=True)
+                    h = a.reshape(-1, 1)
+                ref = ops.execute_int8(tiles, u_q, w_s, in_s, h, spec=spec,
+                                       geom=geom, hadamard_bits=bits,
+                                       fused=True)
+                ref_dyn = (ops.execute_int8(tiles, u_q, w_s, in_s, None,
+                                            spec=spec, geom=geom,
+                                            hadamard_bits=bits)
+                           if bits is not None else None)
+                for dd, dm in meshes:
+                    mesh = make_serving_mesh(dd, dm, host_devices=host,
+                                             device=dev)
+                    ma = "model" if dm > 1 else None
+                    y = ops.execute_int8_sharded(
+                        tiles, u_q, w_s, in_s, h, spec=spec, geom=geom,
+                        mesh=mesh, hadamard_bits=bits, model_axis=ma)
+                    torch.cuda.synchronize()
+                    if not same_bits(y, ref):
+                        fail(f"sharded {name} {base} bits {bits} mesh "
+                             f"{dd}x{dm}: differs from single-device fused "
+                             f"(max |d| {float((y - ref).abs().max())})")
+                    n_checked += 1
+                    if bits is None:
+                        continue
+                    yd = ops.execute_int8_sharded(
+                        tiles, u_q, w_s, in_s, None, spec=spec, geom=geom,
+                        mesh=mesh, hadamard_bits=bits, model_axis=ma)
+                    torch.cuda.synchronize()
+                    if not same_bits(yd, ref_dyn):
+                        fail(f"sharded dynamic {name} {base} bits {bits} "
+                             f"mesh {dd}x{dm}: differs from single-device "
+                             f"staged (max |d| "
+                             f"{float((yd - ref_dyn).abs().max())})")
+                    n_checked += 1
+        return n_checked
+
+    _build.reset_launches()
+    checked = {}
+    for name, xshape, cout in SHARD_LAYERS:
+        checked[name] = layer_checks(name, xshape, cout, SHARD_MESHES,
+                                     SHARD_HOST_DEVICES)
+    xshape, cout, mesh_shape = SMALL_SLAB
+    checked["small_slab"] = layer_checks("small slab", xshape, cout,
+                                         (mesh_shape,), 8)
+    rep["layer_checks"] = checked
+    log(f"sharded per layer, bit for bit with single-device fused "
+        f"(calibrated) and staged (dynamic requant), F(4,3) canonical and "
+        f"legendre, Hadamard off/8/9: {checked} calls on meshes "
+        f"{list(SHARD_MESHES)} over {SHARD_HOST_DEVICES} logical devices "
+        f"(small slab: {xshape} → {cout} on a {mesh_shape} mesh of 8); "
+        f"launches {dict(_build.LAUNCHES)}")
+
+    # the network through infer_resnet's stage 5
+    with tempfile.TemporaryDirectory() as ckpt:
+        _build.reset_launches()
+        out = infer_resnet.main(["--width", str(WIDTH), "--batch",
+                                 str(BATCH), "--calib-steps", "2",
+                                 "--ckpt-dir", ckpt, "--device", dev.type,
+                                 "--host-devices", str(SHARD_HOST_DEVICES)])
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        rep["infer_resnet"] = out
+        rep["infer_launches"] = launches
+        rows = out["sharded"]
+        if [tuple(r["mesh"]) for r in rows] != \
+                list(infer_resnet.STAGE5_MESHES):
+            fail(f"stage 5 ran meshes {[r['mesh'] for r in rows]}")
+        want = infer_launches(out)
+        if launches != want:
+            fail(f"stage-5 run launches {launches}, expected {want}")
+        for r in rows:
+            log(f"stage 5 mesh {r['mesh'][0]}x{r['mesh'][1]}: "
+                f"{r['ms']:.3f} ms a batch of {BATCH} (host clock, one "
+                f"forward), {r['images_s']:.1f} images/s, bit for bit with "
+                f"single-device fused {r['bitwise_vs_fused']}, rel vs fp "
+                f"{r['rel_fp']:.4f} (fused {out['rel_fused_fp']:.4f})")
+        log(f"stage-5 run launches: {launches}")
+
+        # CUDA-event ms per forward on each mesh, single device beside it
+        cfg = RN.ResNetConfig(
+            width_mult=WIDTH,
+            wino=WinogradSpec(m=4, r=3, base="legendre",
+                              quant=QuantConfig(hadamard_bits=9)))
+        params = init_params(RN.param_specs(cfg),
+                             torch.Generator().manual_seed(0))
+        state = init_params(RN.state_specs(cfg),
+                            torch.Generator().manual_seed(1))
+        model = RN.ResNet(cfg, params, state,
+                          RN.make_engine(cfg, backend="direct", device=dev))
+        single = RN.make_engine(cfg, backend="winograd_int8", device=dev)
+        single.prepare(RN.conv_layers(model))
+        tree, _ = restore(ckpt, single.state_template())
+    single.import_state(tree)
+    images = cifar_batch_at(10_000, BATCH, seed=0, device=dev)["images"]
+    engines = {"single": single}
+    for dd, dm in SHARD_MESHES:
+        mesh = make_serving_mesh(dd, dm, host_devices=SHARD_HOST_DEVICES,
+                                 device=dev)
+        eng = RN.make_engine(cfg, backend="winograd_int8", mesh=mesh,
+                             model_axis="model" if dm > 1 else None)
+        eng.import_state(tree)
+        engines[f"{dd}x{dm}"] = eng
+    # per forward: eager calls back to back (the host's enqueue shows
+    # where it is the longer), and replays of the forward captured in a
+    # CUDA graph (device time only, as the serving loop runs it)
+    fwd: dict = {}
+    trace: dict = {}
+    with torch.inference_mode():
+        for b in (BATCH, 64, 1):
+            for name, eng in engines.items():
+                if b != BATCH and name not in ("single", "2x2"):
+                    continue
+                x = images[:b]
+                key = f"{name} B={b}"
+                fwd[key] = {"eager_ms": time_ms(lambda: model(x, eng),
+                                                iters=10, warmup=2)}
+                ms, g = graph_ms(lambda: model(x, eng))
+                fwd[key]["graph_ms"] = ms
+                if name in ("single", "2x2"):
+                    trace[key] = replay_profile(g)
+                del g
+        torch.cuda.empty_cache()
+    rep["forward_ms"] = fwd
+    rep["forward_trace"] = trace
+    log(f"sharded forward, ms a forward (CUDA events; eager: 10 calls back "
+        f"to back; graph: 20 replays of it captured; every mesh on the one "
+        f"card, so its slabs run one after another): "
+        + ", ".join(f"{k} eager {v['eager_ms']:.3f} graph "
+                    f"{v['graph_ms']:.3f}" for k, v in fwd.items()))
+    for key, t in trace.items():
+        log(f"sharded forward trace, {key}, a replay: device busy "
+            f"{t['busy_ms']:.3f} ms (union) of a {t['window_ms']:.3f} ms "
+            f"window, {t['kernels']:.0f} device intervals; top: "
+            + ", ".join(f"{k[:60]} {v:.3f}" for k, v in
+                        list(t["top_ms"].items())[:8]))
+
+    # per layer, device time from CUDA-graph replays: the sharded call
+    # against the single-device call, the slab copies and the gathers
+    per_layer = []
+    with torch.inference_mode():
+        for lname, T, cin, cout, hw, count in LAYERS:
+            spec = WinogradSpec(m=4, r=3, base="legendre",
+                                quant=QuantConfig(hadamard_bits=9))
+            x = torch.randn((BATCH, hw, hw, cin), generator=gen).to(dev)
+            w = (torch.randn((3, 3, cin, cout), generator=gen) * 0.1).to(dev)
+            u_q, w_s = ops.prepare_weights_int8(w, spec)
+            tiles = ops._extract(x, 4, 3, spec.n, "same")
+            geom = ops._geometry(x.shape, 4, 3, "same")
+            in_s = ops.scales_from_abs_max(ops._tiles_abs_max(tiles, spec))
+            _, a = ops.execute_int8(tiles, u_q, w_s, in_s, spec=spec,
+                                    geom=geom, hadamard_bits=9,
+                                    with_stats=True)
+            h = a.reshape(-1, 1)
+            xq = ops.quantize_input(tiles, in_s, spec=spec)
+            t_single = graph_ms(lambda: ops.execute_int8(
+                tiles, u_q, w_s, in_s, h, spec=spec, geom=geom,
+                hadamard_bits=9, fused=True))[0]
+            for dd, dm in SHARD_MESHES[1:]:
+                mesh = engines[f"{dd}x{dm}"].mesh
+                ma = "model" if dm > 1 else None
+                pl = [Placed(t, mesh) for t in (w_s, in_s, h)]
+                uq_p = Placed(u_q, mesh, ma, dim=2)
+
+                def call():
+                    return ops.execute_int8_sharded(
+                        tiles, uq_p, *pl, spec=spec, geom=geom, mesh=mesh,
+                        hadamard_bits=9, model_axis=ma)
+                t_sh = graph_ms(call)[0]
+                t_eager = time_ms(call, iters=10, warmup=2)
+                t_copy = (graph_ms(lambda: shard(xq, mesh, "data", 1))[0]
+                          if dd > 1 else 0.0)
+                pieces = [[torch.empty((T // dd, cout // dm, 4, 4),
+                                       device=dev) for _ in range(dm)]
+                          for _ in range(dd)]
+                t_gather = graph_ms(lambda: gather(
+                    [gather(r, mesh, 1) for r in pieces], mesh, 0))[0]
+                row = {"layer": lname, "count": count, "mesh": [dd, dm],
+                       "T": T, "cin": cin, "cout": cout,
+                       "single_ms": t_single, "sharded_ms": t_sh,
+                       "sharded_eager_ms": t_eager,
+                       "slab_copy_ms": t_copy, "gather_ms": t_gather,
+                       "xq_bytes": int(xq.numel()),
+                       "out_bytes": int(T * cout * 16 * 4)}
+                per_layer.append(row)
+                log(f"sharded layer {lname} (T {T}, {cin}→{cout}, x{count} "
+                    f"a forward) mesh {dd}x{dm}, device ms (graph "
+                    f"replays): call {t_sh:.4f} against single-device "
+                    f"{t_single:.4f} (eager back to back {t_eager:.4f}); "
+                    f"slab copies {t_copy:.4f} "
+                    f"({row['xq_bytes'] / 1e6:.1f} MB of Xq), gathers "
+                    f"{t_gather:.4f} ({row['out_bytes'] / 1e6:.1f} MB of "
+                    f"output)")
+            torch.cuda.empty_cache()
+    rep["per_layer"] = per_layer
+    for dd, dm in SHARD_MESHES[1:]:
+        rows = [r for r in per_layer if r["mesh"] == [dd, dm]]
+
+        def tot(k):
+            return sum(r["count"] * r[k] for r in rows)
+        log(f"sharded mesh {dd}x{dm}, per forward (count-weighted over the "
+            f"14 layers, device ms): calls {tot('sharded_ms'):.3f} against "
+            f"single-device {tot('single_ms'):.3f}, slab copies "
+            f"{tot('slab_copy_ms'):.3f}, gathers {tot('gather_ms'):.3f}; "
+            f"eager calls {tot('sharded_eager_ms'):.3f}")
+    del engines, single, model
+    torch.cuda.empty_cache()
+
+    # launch/serve through a 2 x 2 mesh on the card, at a quarter of the
+    # images/s of its bucket-64 graph replay
+    rate = int(0.25 * 64 / (fwd["2x2 B=64"]["graph_ms"] / 1e3))
+    rep["serve_rate"] = rate
+    _build.reset_launches()
+    sv = serve.main(["--width", str(WIDTH), "--buckets", "1,8,64",
+                     "--max-wait-ms", "5", "--rate", str(rate),
+                     "--requests", str(SHARD_SERVE_REQUESTS),
+                     "--solo-requests", "8", "--calib-steps", "1",
+                     "--calib-batch", "64", "--autotune",
+                     "--mesh-devices", "2", "--model-devices", "2",
+                     "--host-devices", str(SHARD_HOST_DEVICES),
+                     "--device", dev.type])
+    torch.cuda.synchronize()
+    serve_launches = dict(_build.LAUNCHES)
+    sv["launches"] = serve_launches
+    replayed = {k: sum(per.get(k, 0) * sv["replays"][b]
+                       for b, per in sv["launches_per_capture"].items())
+                for k in SERVING}
+    sv["launches_replayed"] = replayed
+    rep["serve"] = sv
+    log(f"sharded serve (2x2 mesh over the card, buckets 1/8/64, max wait "
+        f"5 ms): {sv['requests']} Poisson requests at {rate}/s (a quarter "
+        f"of 64 / the 2x2 bucket-64 graph replay) → "
+        f"{sv['throughput_rps']:.1f}/s served, p50 {sv['p50_ms']:.3f} ms, "
+        f"p99 {sv['p99_ms']:.3f} ms, mean batch {sv['mean_batch']:.2f}, "
+        f"padding {100 * sv['padding_frac']:.1f}%, batches by bucket "
+        f"{sv['batches_by_bucket']}, answered {sv['answered']}, captures "
+        f"after warm-up {sv['compiles_after_warmup']}, rows checked "
+        f"{sv['rows_checked']}; serve-alone {sv['solo_ms']:.3f} ms through "
+        f"bucket 64, {sv['floor_ms']:.3f} ms through bucket 1; warm-up s "
+        f"{sv['warmup_s']}; K4 tiles tuned at warm-up by slab T "
+        f"{sv.get('warmup_tiles')}; launches {serve_launches}, per capture "
+        f"{sv['launches_per_capture']}, replayed {replayed}")
+    if sv["answered"] != SHARD_SERVE_REQUESTS or \
+            sv["compiles_after_warmup"] != 0:
+        fail(f"sharded serve: {sv['answered']} of {SHARD_SERVE_REQUESTS} "
+             f"answered, {sv['compiles_after_warmup']} captures after "
+             f"warm-up")
+    if sorted(sv["rows_checked"]) != sorted(sv["buckets"]):
+        fail(f"sharded serve: rows checked only in buckets "
+             f"{sv['rows_checked']}")
+    if any(serve_launches[k] <= 0 for k in SERVING) or \
+            not replayed["fused_gemm_output"]:
+        fail(f"sharded serve: launches {serve_launches}, replayed "
+             f"{replayed}")
+
+    # padded parity on a 2 x 2 mesh: one layer, a row served in a
+    # zero-padded bucket bit for bit the row served alone
+    mesh = make_serving_mesh(2, 2, host_devices=SHARD_HOST_DEVICES,
+                             device=dev)
+    eng1 = ConvEngine(WinogradSpec(m=4, r=3, base="legendre",
+                                   quant=QuantConfig(hadamard_bits=9)),
+                      ConvPolicy(backend="winograd_int8"), mesh=mesh,
+                      model_axis="model")
+    w1 = torch.randn((3, 3, 64, 64), generator=gen) * 0.1
+    xs = torch.randn((8, 32, 32, 64), generator=gen).numpy()
+    with torch.inference_mode():
+        eng1.prepare([("c", w1)])
+        with eng1.calibration():
+            eng1.conv2d(torch.from_numpy(xs).to(dev), None, layer="c")
+
+        def fwd1(x):
+            return eng1.conv2d(x, None, layer="c")
+        solo = [serve_padded(fwd1, xs[i:i + 1], 1, device=dev)[0]
+                for i in range(8)]
+        for n in (1, 2, 3, 5, 8):
+            y = serve_padded(fwd1, xs[:n], 8, device=dev)
+            for i in range(n):
+                if not np.array_equal(y[i].view(np.int32),
+                                      solo[i].view(np.int32)):
+                    fail(f"sharded padded parity: n={n} row {i} differs "
+                         f"from the row served alone")
+    log("sharded padded parity on a 2x2 mesh, F(4,3) legendre 9-bit, one "
+        "layer (8, 32, 32, 64) → 64: rows in zero-padded buckets of 8 bit "
+        "for bit the rows served alone, n = 1, 2, 3, 5, 8")
+    main_launches = {k: launches[k] + serve_launches[k] for k in launches}
+    return rep, main_launches
 
 
 def main() -> int:
@@ -771,13 +1185,8 @@ def main() -> int:
     for k in SERVING:
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the serving path")
-    # 14 Winograd convs per forward: calibration and staged/dynamic serving
-    # run K1 → K2 → K3, fused serving K1 → K4
-    staged = out["calib_forwards"] + out["staged_forwards"] + \
-        out["dynamic_forwards"]
-    want = {"input_transform": 14 * (staged + out["fused_forwards"]),
-            "wino_gemm": 14 * staged, "output_transform": 14 * staged,
-            "fused_gemm_output": 14 * out["fused_forwards"], "q8_matmul": 0}
+    # on one card without --host-devices, stage 5 serves the 1-device mesh
+    want = infer_launches(out)
     if launches != want:
         fail(f"serving-path launches {launches}, expected {want}")
 
@@ -1258,12 +1667,22 @@ def main() -> int:
             f"for bit the rows served alone, n = 1, 2, 3, 5, 8 "
             f"(launches {dict(_build.LAUNCHES)})")
 
+    # 8. sharded -------------------------------------------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["sharded"], sharded_launches = sharded_phase(dev)
+    report["sharded"]["wall_s"] = time.perf_counter() - t0
+    report["sharded_launches"] = sharded_launches
+    log(f"phase 8 main-path launches (stage 5 run + sharded serve): "
+        f"{sharded_launches}; {report['sharded']['wall_s']:.1f}s in all")
+
     kernels = []
     for k, (src, replaces) in TPU_KERNELS.items():
         r = per[k]
         kernels.append({
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[k], "max_abs_err": errs[k],
+            "launches": launches[k] + sharded_launches[k],
+            "max_abs_err": errs[k],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"]

@@ -52,7 +52,10 @@ Around the lifecycle:
   per layer; the plan rides the checkpoint as ``plan/<layer>`` leaves;
 * ``warmup`` runs the serving forward once per serving geometry
   (capturing one CUDA graph each, ``serving.graphs``), so the first
-  request of a registered shape builds and captures nothing.
+  request of a registered shape builds and captures nothing;
+* ``mesh=`` serves prepared, calibrated layers across a data × model
+  device mesh (``kernels.ops.execute_int8_sharded``), bit for bit with
+  single-device serving.
 """
 from __future__ import annotations
 
@@ -65,15 +68,17 @@ from typing import Iterable, Optional
 import torch
 
 from repro_torch.conv.packing import (PackedWinogradWeights, merge_abs_max,
-                                      pack_weights, scales_from_abs_max,
-                                      tile_leaf)
+                                      pack_weights, place_packed_state,
+                                      scales_from_abs_max, tile_leaf)
 from repro_torch.conv.policy import ConvPolicy
 from repro_torch.core.quantization import QuantConfig
 from repro_torch.core.winograd import (WinogradSpec, direct_conv2d,
                                        make_matrices, winograd_conv2d)
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import axis_extent
 from repro_torch.kernels.ops import (_extract, _geometry, _tiles_abs_max,
-                                     execute_int8, prepare_weights_int8,
+                                     execute_int8, execute_int8_sharded,
+                                     prepare_weights_int8,
                                      winograd_conv2d_int8)
 
 __all__ = ["ConvEngine"]
@@ -101,7 +106,10 @@ class ConvEngine:
                  autotune: bool = False,
                  autotune_opts: Optional[dict] = None,
                  certify: str = "warn",
-                 plan: "Optional[object]" = None):
+                 plan: "Optional[object]" = None,
+                 mesh=None,
+                 data_axis="data",
+                 model_axis=None):
         """``hadamard_bits``: the 8/9-bit Hadamard requant stage; the
         default mirrors ``spec.quant.hadamard_bits``, an int overrides,
         None disables.
@@ -138,7 +146,23 @@ class ConvEngine:
         engine-wide spec covers the unplanned layers. An entry outside
         its Winograd regime raises. The plan rides ``export_state`` /
         ``state_template`` / ``import_state`` as ``plan/<layer>``
-        leaves."""
+        leaves.
+
+        ``mesh``: a ``distributed.sharding.Mesh`` to serve across (the
+        engine's device is then its first device). Prepared, calibrated
+        int8 layers with ``fused`` run ``kernels.ops.execute_int8_sharded``:
+        the Winograd tile axis sharded over ``data_axis`` (a mesh axis name
+        or tuple of names) and, with ``model_axis``, each layer's Cout over
+        that axis. Layers whose Hadamard statistic was dropped serve there
+        too (the sharded dynamic requant). Output bits equal single-device
+        serving (fused, or staged for dynamic requant) on any mesh.
+        Calibration, ``fused=False`` and uncalibrated layers run on the
+        first device. ``packed`` holds the full arrays on the first
+        device; a calibrated state is placed across the mesh once, where
+        it is stored (``prepare``, the end of calibration,
+        ``import_state``; ``conv.packing.place_packed_state``), so a
+        checkpoint written under any mesh reshards here and
+        ``export_state`` writes full arrays."""
         if spec is None:
             policy = policy or ConvPolicy(backend="direct",
                                           fallback="direct")
@@ -157,6 +181,15 @@ class ConvEngine:
         self.padding = padding
         self.hadamard_bits = hadamard_bits
         self.fused = fused
+        self.mesh = mesh
+        self.data_axis = data_axis
+        self.model_axis = model_axis
+        if mesh is not None:
+            if device is not None and \
+                    torch.device(device).type != mesh.first.type:
+                raise ValueError(f"device {device} is not where the mesh "
+                                 f"starts ({mesh.first})")
+            device = mesh.first
         self.device = resolve_device(device)
         if certify not in ("off", "warn", "error"):
             raise ValueError(f"certify must be 'off', 'warn' or 'error', "
@@ -174,8 +207,12 @@ class ConvEngine:
         # (T, Cin, Cout) tile geometry each layer calibrated at: the
         # shape the tile autotuner searches.
         self._tile_geom: dict[str, tuple] = {}
-        # K4 tiles tuned at warm-up: {(layer, T): (bt, bc)}.
+        # K4 tiles tuned at warm-up, by the shape of the call's slab:
+        # {(layer, T, Cout): (bt, bc)}.
         self.tuned_tiles: dict[tuple, tuple] = {}
+        # Under a mesh, each calibrated layer's packed state placed
+        # across it: {layer: placed leaves} (``_store``).
+        self._placed: dict[str, dict] = {}
         self._tuning = False
         # The packed weights each calibration observed: the Hadamard
         # abs-max may only reattach to a later prepare() of the same
@@ -307,9 +344,13 @@ class ConvEngine:
                 "serve flex models via winograd_fakequant/winograd_fp")
         if self._calibrating:
             return self._calibrate_conv(x, w, pk, layer, pad, spec, hbits)
+        if pk is not None and self.mesh is not None and self.fused \
+                and pk.calibrated:
+            return self._conv_sharded(x, layer, pk, spec, hbits, pad)
         if pk is not None:
             N, nt_h, nt_w, _, _ = _geometry(x.shape, spec.m, spec.r, pad)
-            tile = self._tile_for(layer, pk, spec, hbits, N * nt_h * nt_w)
+            tile = self._tile_for(layer, pk, spec, hbits, N * nt_h * nt_w,
+                                  int(pk.u_q.shape[2]))
             return winograd_conv2d_int8(
                 x, None, spec, pad,
                 in_scales=pk.in_scales if pk.calibrated else None,
@@ -320,19 +361,40 @@ class ConvEngine:
         return winograd_conv2d_int8(x, w, spec, pad, hadamard_bits=hbits,
                                     fused=self.fused)
 
-    def _tile_for(self, layer, pk, spec, hbits, T: int):
-        """K4's tile for a call over ``T`` tiles: the packed state's
-        where it was tuned at this T, else one tuned at this T during
-        ``warmup`` (timed now, if warming up with ``autotune``), else
-        None (``fused_tile``)."""
-        tile = pk.tile_at(T) or self.tuned_tiles.get((layer, T))
-        if tile is None and self._tuning and self.fused and pk.calibrated:
+    def _conv_sharded(self, x, layer, pk, spec, hbits, pad):
+        """A prepared, calibrated layer across the mesh: K1 on the full
+        tiles, then each (T-slab × Cout-slab) on its own device."""
+        placed = self._placed[layer]
+        tiles = _extract(x, spec.m, spec.r, spec.n, pad)
+        geom = _geometry(x.shape, spec.m, spec.r, pad)
+        dd = axis_extent(self.mesh, self.data_axis)
+        t_local = -(-int(tiles.shape[0]) // dd)
+        c_local = int(pk.u_q.shape[2]) // axis_extent(self.mesh,
+                                                      self.model_axis)
+        h = placed.get("hadamard_amax") if hbits is not None else None
+        tile = self._tile_for(layer, pk, spec, hbits, t_local, c_local)
+        return execute_int8_sharded(
+            tiles, placed["u_q"], placed["w_scales"], placed["in_scales"],
+            h, spec=spec, geom=geom, mesh=self.mesh, hadamard_bits=hbits,
+            tile=tile, data_axis=self.data_axis, model_axis=self.model_axis)
+
+    def _tile_for(self, layer, pk, spec, hbits, T: int, cout: int):
+        """K4's tile for a call (or each slab of one) over ``T`` tiles and
+        ``cout`` output channels: the packed state's where it was tuned at
+        this shape (it was timed at the layer's full Cout), else one tuned
+        at this shape during ``warmup`` (timed now, if warming up with
+        ``autotune``), else None (``fused_tile``)."""
+        tile = ((pk.tile_at(T) if cout == pk.u_q.shape[2] else None)
+                or self.tuned_tiles.get((layer, T, cout)))
+        if tile is None and self._tuning and self.fused and \
+                pk.calibrated and (hbits is None
+                                   or pk.hadamard_amax is not None):
             from repro_torch.conv.autotune import autotune_blocks
             tile = autotune_blocks(
-                spec, T, int(pk.u_q.shape[1]), int(pk.u_q.shape[2]),
+                spec, T, int(pk.u_q.shape[1]), cout,
                 hadamard_bits=hbits, device=self.device,
                 **self.autotune_opts).tile
-            self.tuned_tiles[(layer, T)] = tile
+            self.tuned_tiles[(layer, T, cout)] = tile
         return tile
 
     def _calibrate_conv(self, x, w, pk, layer, pad, spec, hbits):
@@ -431,7 +493,7 @@ class ConvEngine:
                 new, in_scales=self._scales[layer],
                 hadamard_amax=(self._h_amax_final.get(layer)
                                if same_w else None))
-        self.packed[layer] = new
+        self._store(layer, new)
         return True
 
     def prepare(self, named_weights: Iterable[tuple]) -> list[str]:
@@ -475,8 +537,8 @@ class ConvEngine:
                 hs = self._amax_h[layer].reshape(-1, 1)
                 self._h_amax_final[layer] = hs
             if layer in self.packed:
-                self.packed[layer] = dataclasses.replace(
-                    self.packed[layer], in_scales=s, hadamard_amax=hs)
+                self._store(layer, dataclasses.replace(
+                    self.packed[layer], in_scales=s, hadamard_amax=hs))
         self._amax = {}
         self._amax_h = {}
         if self.autotune:
@@ -499,8 +561,8 @@ class ConvEngine:
                                   hadamard_bits=self._layer_hbits(layer),
                                   device=self.device, **self.autotune_opts)
             tuned[layer] = res.tile
-            self.packed[layer] = dataclasses.replace(
-                pk, blocks=tile_leaf(res.tile, geom[0]))
+            self._store(layer, dataclasses.replace(
+                pk, blocks=tile_leaf(res.tile, geom[0])))
         return tuned
 
     # -- serialization ------------------------------------------------------
@@ -550,10 +612,26 @@ class ConvEngine:
 
     def import_state(self, tree: dict):
         """Adopt a restored packed + calibrated tree, placed on this
-        engine's device. A tree with a ``plan`` group makes the
-        checkpoint's plan the engine's."""
+        engine's device; under a mesh, also placed across it
+        (``_store``), whatever mesh wrote the checkpoint. A tree with a
+        ``plan`` group makes the checkpoint's plan the engine's."""
         if "plan" in tree:
             from repro_torch.conv.planner import Plan
             self.plan = Plan.from_tree(tree["plan"])
-        self.packed = {l: PackedWinogradWeights.from_tree(sub, self.device)
-                       for l, sub in tree["packed"].items()}
+        self.packed, self._placed = {}, {}
+        for l, sub in tree["packed"].items():
+            self._store(l, PackedWinogradWeights.from_tree(sub, self.device))
+
+    def _store(self, layer: str, pk: PackedWinogradWeights) -> None:
+        """Make ``pk`` the layer's packed state. Under a mesh, a
+        calibrated state that serves fused is placed across it here, once
+        (``place_packed_state``: ``u_q`` cut along Cout over the model
+        axis, every other leaf whole on each device; on the first device
+        a whole leaf is ``pk``'s own tensor). The engine changes
+        ``packed`` only through here."""
+        self.packed[layer] = pk
+        self._placed.pop(layer, None)
+        if self.mesh is not None and self.fused and pk.calibrated:
+            self._placed[layer] = place_packed_state(
+                self.mesh, {"packed": {layer: pk.to_tree()}},
+                model_axis=self.model_axis)["packed"][layer]

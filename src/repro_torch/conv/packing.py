@@ -5,6 +5,13 @@ Everything that does not depend on the live batch — the Winograd weight
 transform, its per-position int8 quantization and the per-position input
 scales — is computed once here, so the hot path (``kernels.ops``) runs
 no weight transform and no scale reduction per call.
+
+Under a device mesh (``place_packed_state``) a packed state is placed
+once: every ``u_q`` cut along Cout per model index, each shard made
+contiguous there and held by every device of its model column; the
+per-position statistics whole on every device. A checkpoint holds the
+full arrays, so a state written under one mesh restores under any
+other.
 """
 from __future__ import annotations
 
@@ -20,7 +27,7 @@ from repro_torch.kernels.ops import (input_abs_max, prepare_weights_int8,
 
 __all__ = ["PackedWinogradWeights", "pack_weights", "observed_abs_max",
            "merge_abs_max", "scales_from_abs_max", "tile_leaf",
-           "tile_from_leaf"]
+           "tile_from_leaf", "place_packed_state"]
 
 
 def tile_leaf(tile: tuple, T: int) -> torch.Tensor:
@@ -170,3 +177,33 @@ def merge_abs_max(running: Optional[torch.Tensor],
                   new: torch.Tensor) -> torch.Tensor:
     """Fold one batch's abs-max into the running calibration maxima."""
     return new if running is None else torch.maximum(running, new)
+
+
+def place_packed_state(mesh, state_tree: dict, model_axis=None) -> dict:
+    """Place a packed state tree (``export_state``'s) across ``mesh`` once,
+    each leaf a ``distributed.sharding.Placed``: ``u_q`` cut along Cout
+    into one contiguous block per index of ``model_axis`` (None: whole),
+    every other leaf whole on every device; ``blocks``, the port's
+    host-side tile record, and the plan stay as they are. A Cout that
+    the model extent does not divide raises, naming the leaf: the
+    executor cuts exactly Cout / D_model columns a device."""
+    from repro_torch.distributed.sharding import Placed, axis_extent
+    dm = axis_extent(mesh, model_axis)
+    out = {"packed": {}}
+    for layer, sub in state_tree["packed"].items():
+        cout = sub["u_q"].shape[-1]
+        if cout % dm != 0:
+            raise ValueError(
+                f"packed/{layer}/u_q: Cout={cout} is not divisible by the "
+                f"mesh's {model_axis!r} axis extent {dm} — conv tensor "
+                "parallelism shards the per-position GEMM's N axis into "
+                "equal per-device slabs. Serve this checkpoint on a model "
+                "axis that divides every layer's Cout.")
+        out["packed"][layer] = {
+            name: (leaf if name == "blocks" else
+                   Placed(torch.as_tensor(leaf), mesh, model_axis, dim=2)
+                   if name == "u_q" else Placed(torch.as_tensor(leaf), mesh))
+            for name, leaf in sub.items()}
+    if "plan" in state_tree:
+        out["plan"] = state_tree["plan"]
+    return out

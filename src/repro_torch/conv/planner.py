@@ -41,7 +41,8 @@ from repro_torch.core.winograd import WinogradSpec
 __all__ = [
     "PlanEntry", "Plan", "LayerGeom", "CandidateCost",
     "candidate_entries", "measure_layer", "solve_plan", "build_plan",
-    "plan_cost_us", "clear_measure_cache", "time_call_us", "PLAN_VEC_LEN",
+    "plan_cost_us", "TP_COLLECTIVE_US", "clear_measure_cache",
+    "time_call_us", "PLAN_VEC_LEN",
     "DEFAULT_TILE_SIZES", "DEFAULT_BASES", "DEFAULT_HADAMARD_BITS",
 ]
 
@@ -410,17 +411,45 @@ def solve_plan(costs: Mapping[str, Sequence[CandidateCost]], *,
     return Plan(entries)
 
 
+#: Modelled fixed cost (µs) of the one per-layer model-axis gather of
+#: the sharded executor (``kernels.ops.execute_int8_sharded``). The JAX
+#: package's modelling constant, carried over so that ``plan_cost_us``
+#: equals its own; it is not a measurement of this port (PERF.md gives
+#: the card's measured gather time beside it).
+TP_COLLECTIVE_US = 20.0
+
+
 def plan_cost_us(plan: Plan,
-                 costs: Mapping[str, Sequence[CandidateCost]]) -> float:
-    """Total time of ``plan`` under a cost table (µs): the sum of its
-    entries' single-device times."""
+                 costs: Mapping[str, Sequence[CandidateCost]], *,
+                 mesh=None, data_axis="data", model_axis=None,
+                 collective_us: float = TP_COLLECTIVE_US) -> float:
+    """Total modelled time of ``plan`` under a cost table (µs), the JAX
+    package's model.
+
+    Without ``mesh``, the sum of its entries' single-device times. Under
+    a mesh: a ``winograd_int8`` layer's time divides by D_data · D_model
+    (tiles over ``data_axis`` × Cout over ``model_axis``, as the sharded
+    executor splits it) plus ``collective_us`` where the model extent is
+    above 1; a ``direct`` layer's by D_data, as the JAX package shards
+    its batch. The port's mesh engine does not split direct layers: it
+    runs them whole on the mesh's first device, so under a mesh this
+    model understates the port's direct time."""
+    from repro_torch.distributed.sharding import axis_extent
+    dd = dm = 1
+    if mesh is not None:
+        dd = axis_extent(mesh, data_axis)
+        dm = axis_extent(mesh, model_axis)
     total = 0.0
     for layer, entry in plan.entries.items():
         cost = next((c for c in costs[layer] if c.entry == entry), None)
         if cost is None:
             raise ValueError(f"layer {layer!r}: plan entry "
                              f"{entry.describe()} not in the cost table")
-        total += cost.us
+        if entry.is_winograd:
+            total += cost.us / (dd * dm) + (collective_us if dm > 1
+                                            else 0.0)
+        else:
+            total += cost.us / dd
     return total
 
 

@@ -19,14 +19,21 @@ plane-wide reductions cannot run inside a tiled kernel.
 One Xq everywhere: every mode obtains its int8 input through
 ``quantize_input``, the one input-transform unit.
 
+Sharded serving (``execute_int8_sharded``): K1 once on the full tiles,
+then per (T-slab × Cout-slab) of a data × model device mesh either K4
+(calibrated) or K2 → plain requant with the merged abs-max → K3
+(dynamic); the slabs' outputs are gathered along Cout, then along T.
+
 Tile extraction and the calibration reduction (``_tiles_abs_max``) are
 plain torch, as they were XLA glue outside Pallas in the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -43,7 +50,7 @@ from repro_torch.kernels.wino_transform import (input_transform,
 
 __all__ = ["prepare_weights_int8", "input_abs_max", "scales_from_abs_max",
            "quantize_input", "winograd_conv2d_int8", "execute_int8",
-           "q8_linear"]
+           "execute_int8_sharded", "q8_linear"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -229,14 +236,11 @@ def execute_int8(tiles: torch.Tensor, u_q: torch.Tensor,
         if hadamard_bits is not None:
             # Dynamic 8/9-bit Hadamard stage: derive the per-position
             # scale from this plane (no calibration, or recording one).
-            qm = qmax(hadamard_bits)
-            hf = H.to(torch.float32) * deq[:, :, None]
+            hf = _dequant(H, deq)
             if h_amax is None or with_stats:
-                amax_h = hf.abs().amax(dim=(1, 2), keepdim=True)
+                amax_h = _plane_abs_max(hf)
             amax = amax_h if h_amax is None else h_amax.reshape(-1, 1, 1)
-            s_h = torch.clamp_min(amax, 1e-12) / qm
-            H = torch.clamp(torch.round(hf / s_h), -qm, qm).to(torch.int32)
-            deq = s_h[:, :, 0]
+            H, deq = _requant(hf, amax, hadamard_bits)
 
     y = output_transform(H, deq.contiguous(), ops["CinvT"], ops["APT"],
                          m=m, changes_base=spec.changes_base)
@@ -244,6 +248,147 @@ def execute_int8(tiles: torch.Tensor, u_q: torch.Tensor,
     if with_stats:
         return out, amax_h[:, 0, 0]
     return out
+
+
+def _dequant(H: torch.Tensor, deq: torch.Tensor) -> torch.Tensor:
+    """The dynamic requant's fp32 plane: int32 (P, T, C) · (P, 1)."""
+    return H.to(torch.float32) * deq[:, :, None]
+
+
+def _plane_abs_max(hf: torch.Tensor) -> torch.Tensor:
+    """Per-position abs-max of a dequantized plane: (P, 1, 1)."""
+    return hf.abs().amax(dim=(1, 2), keepdim=True)
+
+
+def _requant(hf: torch.Tensor, amax: torch.Tensor, bits: int):
+    """The dynamic 8/9-bit Hadamard requant of the plane ``hf`` with the
+    per-position maximum ``amax`` (P, 1, 1): (int32 plane, (P, 1) scale).
+    The single-device and the sharded executors both requant here, so
+    their formulas and order are one."""
+    qm = qmax(bits)
+    s_h = torch.clamp_min(amax, 1e-12) / qm
+    Hq = torch.clamp(torch.round(hf / s_h), -qm, qm).to(torch.int32)
+    return Hq, s_h[:, :, 0]
+
+
+def _on(device: torch.device):
+    """Make ``device`` current for a kernel launch (the kernels launch on
+    the current device's current stream)."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def execute_int8_sharded(tiles: torch.Tensor, u_q, w_scales, in_scales,
+                         h_amax=None, *, spec: WinogradSpec, geom: tuple,
+                         mesh, hadamard_bits: Optional[int],
+                         tile: Optional[tuple] = None, data_axis="data",
+                         model_axis=None) -> torch.Tensor:
+    """Serving over a data × model device mesh: the Winograd tile axis T
+    sharded over ``data_axis`` and the per-position GEMM's N axis (Cout)
+    over ``model_axis`` (None: a data-only mesh).
+
+    ``tiles`` lie on the mesh's first device. ``u_q`` and the per-position
+    statistics are tensors or ``distributed.sharding.Placed`` over this
+    mesh (``conv.packing.place_packed_state``: ``u_q`` cut along Cout per
+    model index, the statistics whole on every device); tensors are
+    placed here.
+
+    One Xq: K1 runs once on the full tile tensor and only its int8 output
+    is cut (T zero-padded to a multiple of the data extent; zero rows
+    give zero products, which raise no abs-max, and are cropped). Each
+    mesh position (a, b) then runs on its own device's current stream,
+    against its own Cout shard:
+
+    * calibrated (``h_amax`` given, or the Hadamard stage off): K4 on its
+      (T/D_data, Cout/D_model) slab, with ``tile`` (one tile for every
+      slab, as they share a shape);
+    * dynamic (``hadamard_bits`` set, no ``h_amax``): K2 on its slab, the
+      slab's per-position abs-max of the dequantized plane, one merge of
+      those maxima (a max of maxima: the single-device plane's maximum
+      exactly), then per slab the plain requant with that maximum and K3
+      — the formulas and order of ``execute_int8``'s dynamic branch.
+
+    The outputs are gathered along Cout, then along T, cropped and
+    reassembled: the output equals ``execute_int8``'s bit for bit
+    (calibrated: fused; dynamic: staged) on any mesh. ``Cout`` must
+    divide into the model extent.
+    """
+    from repro_torch.distributed.sharding import (axis_extent, device_grid,
+                                                  gather, gather_max,
+                                                  placed_or, shard)
+    dm = axis_extent(mesh, model_axis)
+    cout = u_q.shape[-1]
+    if cout % dm != 0:
+        raise ValueError(
+            f"sharded serving: Cout={cout} is not divisible by the "
+            f"{model_axis!r} mesh axis extent {dm} — conv tensor "
+            "parallelism slices the per-position GEMM's N axis into "
+            "equal per-device slabs (see conv.packing)")
+    first = mesh.first
+    if tiles.device != first:
+        raise ValueError(f"tiles are on {tiles.device}; a sharded call "
+                         f"takes them on the mesh's first device {first}")
+    u = placed_or(u_q, mesh, model_axis, dim=2)
+    w_s, in_s, h = (placed_or(t, mesh) for t in (w_scales, in_scales,
+                                                  h_amax))
+    dynamic = hadamard_bits is not None and h is None
+    m = spec.m
+    grid = device_grid(mesh, data_axis, model_axis)
+    dd = grid.shape[0]
+
+    Xq = quantize_input(tiles, in_s.local(first), spec=spec)
+    T = Xq.shape[1]
+    pad = (-T) % dd
+    if pad:
+        Xq = F.pad(Xq, (0, 0, 0, pad))
+    xs = shard(Xq, mesh, data_axis, dim=1)
+
+    # per device: transform operands, dequant (and requant) scales
+    local: dict = {}
+    for dev in dict.fromkeys(grid.flat):
+        deq = in_s.local(dev) * w_s.local(dev)
+        rq = (torch.ones_like(deq) if hadamard_bits is None else
+              None if dynamic else
+              _hadamard_rq(h.local(dev), hadamard_bits))
+        local[dev] = (_operands(spec, dev), deq, rq)
+    slabs: dict = {}
+
+    def xq_at(a, dev):
+        if (a, dev) not in slabs:
+            slabs[(a, dev)] = xs[a].to(dev, non_blocking=True)
+        return slabs[(a, dev)]
+
+    ys = np.empty(grid.shape, dtype=object)
+    if not dynamic:
+        for (a, b), dev in np.ndenumerate(grid):
+            ops, deq, rq = local[dev]
+            with _on(dev):
+                ys[a, b] = fused_gemm_output(
+                    xq_at(a, dev), u.local(dev, b), deq, rq, ops["CinvT"],
+                    ops["APT"], m=m, requant_bits=hadamard_bits,
+                    changes_base=spec.changes_base, tile=tile)
+    else:
+        hfs = np.empty(grid.shape, dtype=object)
+        maxima = []
+        for (a, b), dev in np.ndenumerate(grid):
+            _, deq, _ = local[dev]
+            with _on(dev):
+                hfs[a, b] = _dequant(wino_gemm(xq_at(a, dev),
+                                               u.local(dev, b)), deq)
+                maxima.append(_plane_abs_max(hfs[a, b]))
+        amax = gather_max(maxima, mesh)                 # the one merge
+        for (a, b), dev in np.ndenumerate(grid):
+            ops = local[dev][0]
+            with _on(dev):
+                Hq, s_h = _requant(hfs[a, b],
+                                   amax.to(dev, non_blocking=True),
+                                   hadamard_bits)
+                ys[a, b] = output_transform(
+                    Hq, s_h.contiguous(), ops["CinvT"], ops["APT"], m=m,
+                    changes_base=spec.changes_base)
+    y = gather([gather(list(ys[a]), mesh, dim=1) for a in range(dd)],
+               mesh, dim=0)
+    return _reassemble(y[:T], geom, m)
 
 
 def _q8_operands(x2: torch.Tensor, w: torch.Tensor):

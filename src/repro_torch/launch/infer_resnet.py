@@ -4,7 +4,7 @@ on the port's CUDA kernels.
     PYTHONPATH=src python -m repro_torch.launch.infer_resnet \\
         --width 1.0 --batch 256 --calib-steps 2
 
-The counterpart of ``repro.launch.infer_resnet`` stages 1–4:
+The counterpart of ``repro.launch.infer_resnet`` stages 1–5:
 
 1. **pack** — transform every eligible conv's weights once into
    per-position int8 (``ConvEngine.prepare``).
@@ -20,6 +20,19 @@ The counterpart of ``repro.launch.infer_resnet`` stages 1–4:
    serving adds no error over staged against the fp32 reference, the
    ``winograd_fp`` network (the exact F(4,3) pipeline in plain PyTorch,
    as the JAX launcher's gate).
+5. **sharded serve** — restore the same checkpoint into mesh engines
+   (``ConvEngine(mesh=...)``): data-only meshes of 1, 2 and 4 devices and
+   a 2 × 2 data × model mesh, each serving the batch with every Winograd
+   layer's tiles cut over the data axis and its Cout over the model
+   axis. One row per mesh: ms per batch, images/s, rel and argmax
+   agreement against single-device fused; the logits must equal the
+   single-device fused logits bit for bit (the same kernels on the same
+   bits), and the JAX launcher's gate holds: |rel(sharded, fp) −
+   rel(fused, fp)| < 0.05. ``--host-devices N`` lays N logical devices
+   over the card(s) (or the CPU). With ``--host-devices`` or more than
+   one device the stage runs all four meshes, and a mesh that needs more
+   devices than there are raises; on one device it runs the 1-device
+   mesh, as the JAX launcher does.
 
 Stages 1–3 are ``launch.offline``'s, shared with ``launch.serve``.
 ``--plan`` first measures a per-layer algorithm plan at the serving
@@ -28,12 +41,12 @@ layer at calibration, at the serving batch's geometry
 (``conv.autotune``); both ride the checkpoint, and
 the served engines take the plan back from it. Runs on the card unless
 ``--device cpu`` is passed, which runs the kernels' plain versions.
-Sharded serving of the JAX launcher is not ported yet.
 """
 from __future__ import annotations
 
 import argparse
 import tempfile
+import time
 from typing import Optional
 
 import numpy as np
@@ -45,11 +58,15 @@ from repro_torch.core.quantization import QuantConfig
 from repro_torch.core.winograd import WinogradSpec
 from repro_torch.data.pipeline import cifar_batch_at
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import logical_devices, make_serving_mesh
 from repro_torch.launch.offline import add_offline_args, build_checkpoint
 from repro_torch.models import resnet as RN
 from repro_torch.models.param import init_params
 
-__all__ = ["main", "rel"]
+__all__ = ["main", "rel", "STAGE5_MESHES"]
+
+#: Stage 5's meshes, (data, model).
+STAGE5_MESHES = ((1, 1), (2, 1), (4, 1), (2, 2))
 
 
 def rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -82,19 +99,78 @@ def main(argv: Optional[list] = None) -> dict:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and images")
     add_offline_args(ap, plan_at="the serving batch")
+    ap.add_argument("--host-devices", type=int, default=0,
+                    help="stage 5: lay N logical devices over the card(s) "
+                         "(cuda:i mod count) or the CPU, so one card serves "
+                         "every mesh")
     args = ap.parse_args(argv)
     if args.calib_steps < 1:
         ap.error("--calib-steps must be >= 1 (int8 serving needs "
                  "calibrated scales)")
     device = resolve_device(args.device)
+    shapes = (STAGE5_MESHES if args.host_devices > 0
+              or len(logical_devices(device)) > 1 else ((1, 1),))
+    # the meshes are made (and a missing device refused) before any work
+    meshes = [make_serving_mesh(d, mdl, host_devices=args.host_devices,
+                                device=device) for d, mdl in shapes]
     if args.ckpt_dir is None:
         with tempfile.TemporaryDirectory() as d:
-            return _run(args, device, d)
-    return _run(args, device, args.ckpt_dir)
+            return _run(args, device, d, meshes)
+    return _run(args, device, args.ckpt_dir, meshes)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _sharded_rows(model, cfg, plan, tree, images, y_fused, y_fp,
+                  err_fused: float, meshes, device) -> list:
+    """Stage 5: the checkpoint restored into one mesh engine per mesh,
+    each serving ``images`` once to warm up and once timed (host clock
+    around a synchronised forward). Raises unless the logits equal
+    ``y_fused`` bit for bit and pass the no-added-error gate."""
+    rows = []
+    for mesh in meshes:
+        dd = mesh.shape["data"]
+        dm = mesh.shape.get("model", 1)
+        eng = RN.make_engine(cfg, backend="winograd_int8", plan=plan,
+                             mesh=mesh,
+                             model_axis="model" if dm > 1 else None)
+        eng.import_state(tree)          # placed across the mesh
+        model(images, eng)
+        _sync(device)
+        t0 = time.perf_counter()
+        y = model(images, eng)
+        _sync(device)
+        secs = time.perf_counter() - t0  # lint: waive=unsynced-timing
+        row = {"mesh": [dd, dm], "devices": [str(d) for d in
+                                             mesh.devices.flat],
+               "ms": 1e3 * secs, "images_s": images.shape[0] / secs,
+               "rel_vs_fused": rel(y, y_fused),
+               "agree_vs_fused": _agree(y, y_fused),
+               "rel_fp": rel(y, y_fp),
+               "bitwise_vs_fused": bool(torch.equal(y, y_fused))}
+        rows.append(row)
+        print(f"[serve] sharded fused ({dd}×{dm} mesh over "
+              f"{len(mesh.distinct())} device(s)): {row['ms']:.3f} ms/batch, "
+              f"{row['images_s']:.1f} img/s, rel vs single-device fused "
+              f"{row['rel_vs_fused']:.4f}, argmax agreement "
+              f"{row['agree_vs_fused']:.2f}, bit for bit "
+              f"{row['bitwise_vs_fused']}")
+        if not row["bitwise_vs_fused"]:
+            raise AssertionError(
+                f"{dd}×{dm} mesh: sharded logits differ from single-device "
+                f"fused (max |difference| "
+                f"{float((y - y_fused).abs().max())})")
+        assert abs(row["rel_fp"] - err_fused) < 0.05, \
+            (f"sharded serving adds error vs the fp reference: "
+             f"{row['rel_fp']:.4f} vs fused {err_fused:.4f}")
+    return rows
 
 
 @torch.inference_mode()
-def _run(args, device: torch.device, ckpt_dir: str) -> dict:
+def _run(args, device: torch.device, ckpt_dir: str, meshes) -> dict:
     cfg = RN.ResNetConfig(
         width_mult=args.width,
         wino=WinogradSpec(m=4, r=3, base=args.base,
@@ -158,7 +234,12 @@ def _run(args, device: torch.device, ckpt_dir: str) -> dict:
         (f"fused serving adds error over staged vs the fp reference: "
          f"{err_fused:.4f} vs {err_staged:.4f}")
     np.testing.assert_array_less(err_fused, 1.0)
+
+    # 5. sharded serving: the same checkpoint across each mesh
+    sharded = _sharded_rows(model, cfg, plan, tree, images, y_fused, y_fp,
+                            err_fused, meshes, device)
     return {"packed_layers": offline["packed_layers"], "fused_forwards": 1,
+            "sharded": sharded, "sharded_forwards_per_mesh": 2,
             "plan": plan.describe() if plan is not None else None,
             "staged_forwards": 1, "dynamic_forwards": 1,
             "calib_forwards": args.calib_steps,

@@ -4,7 +4,7 @@ serve under continuous batching, on the port's CUDA kernels.
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --width 1.0 --buckets 1,8,64,256 --rate 4000 --requests 4096
 
-The counterpart of ``repro.launch.serve`` (single device):
+The counterpart of ``repro.launch.serve``:
 
 1. **offline** — random ResNet-18 weights from ``--seed``; with
    ``--plan`` a per-layer algorithm plan measured at the largest bucket
@@ -26,6 +26,15 @@ The counterpart of ``repro.launch.serve`` (single device):
    of its size first). With ``--trace-requests`` a second, traced load
    reads the device's busy share under load. Then drain.
 
+``--mesh-devices D --model-devices M`` serves from a D × M (data ×
+model) device mesh: each Winograd layer's tiles cut over the data axis
+and its Cout, with 1/M of its packed weight bytes, over the model axis
+(``ConvEngine(mesh=...)``); the checkpoint holds full arrays and is
+placed across the mesh at restore. ``--host-devices N`` lays N logical
+devices over the card(s) (or the CPU), so one card serves any mesh
+through one CUDA graph per bucket; more devices than exist without it
+raise. The gates are the same under a mesh.
+
 Runs on the card unless ``--device cpu`` is passed (the kernels' plain
 versions, no graphs). ``main`` returns the report as a dict.
 """
@@ -44,6 +53,7 @@ from repro_torch.core.quantization import QuantConfig
 from repro_torch.core.winograd import WinogradSpec
 from repro_torch.data.pipeline import cifar_batch_at
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.launch.offline import add_offline_args, build_checkpoint
 from repro_torch.models import resnet as RN
 from repro_torch.models.param import init_params
@@ -94,19 +104,46 @@ def _args(argv):
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) runs the CUDA kernels and "
                          "graphs; 'cpu' runs their plain versions")
+    ap.add_argument("--mesh-devices", type=int, default=0,
+                    help="serve through a data-axis mesh of N devices "
+                         "(0: one device)")
+    ap.add_argument("--model-devices", type=int, default=0,
+                    help="add a model axis of M devices: a 2-D (data × "
+                         "model) mesh of N×M devices cuts each layer's Cout "
+                         "(and 1/M of its packed weight bytes) per device")
+    ap.add_argument("--host-devices", type=int, default=0,
+                    help="lay N logical devices over the card(s) "
+                         "(cuda:i mod count) or the CPU, for the mesh")
     args = ap.parse_args(argv)
     if args.calib_steps < 1:
         ap.error("--calib-steps must be >= 1")
     return args
 
 
+def serving_mesh(args, device: torch.device):
+    """The mesh ``--mesh-devices``/``--model-devices`` ask for and its
+    model axis: ``(mesh, "model" or None)``, or ``(None, None)`` for one
+    device."""
+    if args.mesh_devices <= 0 and args.model_devices <= 1:
+        return None, None
+    dd, dm = max(args.mesh_devices, 1), max(args.model_devices, 1)
+    mesh = make_serving_mesh(dd, dm, host_devices=args.host_devices,
+                             device=device)
+    print(f"[mesh] serving across a {dd}×{dm} (data × model) mesh over "
+          f"{len(mesh.distinct())} device(s): tiles over the data axis"
+          + (f", Cout (1/{dm} of the packed weights a device) over the "
+             f"model axis" if dm > 1 else ""))
+    return mesh, ("model" if dm > 1 else None)
+
+
 def main(argv: Optional[list] = None) -> dict:
     args = _args(argv)
     device = resolve_device(args.device)
+    mesh_axis = serving_mesh(args, device)    # refused before any work
     if args.ckpt_dir is None:
         with tempfile.TemporaryDirectory() as d:
-            return _run(args, device, d)
-    return _run(args, device, args.ckpt_dir)
+            return _run(args, device, d, mesh_axis)
+    return _run(args, device, args.ckpt_dir, mesh_axis)
 
 
 def _check_rows(model, engine, rows: dict, requests, batches,
@@ -184,7 +221,8 @@ def _burst(loop, requests, n: int, rows: dict):
 
 
 @torch.inference_mode()
-def _run(args, device: torch.device, ckpt_dir: str) -> dict:
+def _run(args, device: torch.device, ckpt_dir: str, mesh_axis) -> dict:
+    mesh, model_axis = mesh_axis
     buckets = tuple(sorted(int(b) for b in args.buckets.split(",")))
     cfg = RN.ResNetConfig(
         width_mult=args.width,
@@ -208,8 +246,10 @@ def _run(args, device: torch.device, ckpt_dir: str) -> dict:
     plan = Plan.from_checkpoint(ckpt_dir)
     if plan is not None:
         print(f"[plan] serving the checkpoint's plan: {plan.describe()}")
-    served = RN.make_engine(cfg, backend="winograd_int8", device=device,
-                            plan=plan, autotune=args.autotune)
+    served = RN.make_engine(cfg, backend="winograd_int8",
+                            device=None if mesh is not None else device,
+                            plan=plan, autotune=args.autotune, mesh=mesh,
+                            model_axis=model_axis)
     tree, _ = restore(ckpt_dir, template)
     served.import_state(tree)
     served.serve_fn = RN.serving_forward(model, served)
@@ -224,7 +264,7 @@ def _run(args, device: torch.device, ckpt_dir: str) -> dict:
               f"+ replay)")
     if args.autotune:
         by_layer: dict = {}
-        for (layer, T), tile in sorted(served.tuned_tiles.items()):
+        for (layer, T, _), tile in sorted(served.tuned_tiles.items()):
             by_layer.setdefault(layer, {})[T] = tile
         out["warmup_tiles"] = by_layer
         print("[autotune] K4 tile per layer at each served T, tuned at "
@@ -302,6 +342,9 @@ def _run(args, device: torch.device, ckpt_dir: str) -> dict:
     print("[serve] drained and shut down")
     fwd = served.serve_fn
     out.update({
+        "mesh": (None if mesh is None else
+                 {"shape": dict(mesh.shape),
+                  "devices": [str(d) for d in mesh.devices.flat]}),
         "buckets": buckets, "requests": args.requests, "answered": answered,
         "rate_rps": args.rate, "throughput_rps": report.throughput_rps,
         "p50_ms": report.p50_ms(), "p99_ms": report.p99_ms(),

@@ -150,14 +150,19 @@ def make_engine(cfg: ResNetConfig, backend: Optional[str] = None,
                 autotune: bool = False,
                 autotune_opts: Optional[dict] = None,
                 plan=None,
-                warmup: Optional[tuple] = None) -> ConvEngine:
+                warmup: Optional[tuple] = None,
+                mesh=None, data_axis="data",
+                model_axis=None) -> ConvEngine:
     """The config's ConvEngine. ``backend`` overrides the eligible-conv
     backend (``"winograd_int8"`` to serve through the CUDA kernels,
     ``"direct"`` for the fp32 reference); ``fused=False`` forces the
     staged int8 pipeline. ``autotune``/``autotune_opts``: tune K4's tile
     per layer shape at calibration (``conv.autotune``). ``plan``: a
     measured ``conv.planner.Plan`` (planned layers route by their entry,
-    the policy covers the rest).
+    the policy covers the rest). ``mesh``: serve prepared, calibrated
+    int8 layers across a ``distributed.sharding.Mesh``, tiles over
+    ``data_axis`` and, with ``model_axis``, each conv's Cout over that
+    axis (see ``ConvEngine``).
 
     ``warmup=(params, state, geometries)`` also builds the serving
     forward (``serving_forward``) as ``engine.serve_fn`` and runs
@@ -172,7 +177,8 @@ def make_engine(cfg: ResNetConfig, backend: Optional[str] = None,
         backend = backend or cfg.conv_backend or "winograd_fakequant"
         eng = ConvEngine(cfg.wino, ConvPolicy(backend=backend), fused=fused,
                          device=device, autotune=autotune,
-                         autotune_opts=autotune_opts, plan=plan)
+                         autotune_opts=autotune_opts, plan=plan, mesh=mesh,
+                         data_axis=data_axis, model_axis=model_axis)
     if warmup is not None:
         params, state, geometries = warmup
         eng.serve_fn = serving_forward(ResNet(cfg, params, state, eng))
@@ -186,10 +192,12 @@ def serving_forward(model: "ResNet", engine: Optional[ConvEngine] = None):
     input shape on the card (``serving.graphs.GraphedForward``; eager on
     the CPU). Build it once per engine and reuse it: a new one captures
     every shape again. The logits it returns are the graph's static
-    output, overwritten by the next call of the same shape."""
+    output, overwritten by the next call of the same shape. An engine
+    whose mesh spans several cards is refused (``GraphedForward``)."""
     from repro_torch.serving.graphs import GraphedForward
     eng = engine or model.engine
-    return GraphedForward(lambda images: model(images, eng), eng.device)
+    return GraphedForward(lambda images: model(images, eng), eng.device,
+                          mesh=eng.mesh)
 
 
 def layer_geoms(cfg: ResNetConfig, batch: int,

@@ -24,7 +24,10 @@ Contracts:
   product is the launches the replays ran.
 
 On the CPU there are no graphs: the forward runs eagerly at every call
-and ``captures`` stays 0.
+and ``captures`` stays 0. A forward over a mesh of one card captures as
+any other; one over several cards is refused when it is wrapped: its
+capture would need a stream forked to each card and joined by events,
+which is not built.
 """
 from __future__ import annotations
 
@@ -40,9 +43,15 @@ __all__ = ["GraphedForward"]
 class GraphedForward:
     """A serving forward with one CUDA graph per input shape (see the
     module docstring). ``fn``: the eager forward; ``device``: where it
-    runs."""
+    runs; ``mesh``: the device mesh its engine serves across, if any."""
 
-    def __init__(self, fn: Callable[[torch.Tensor], torch.Tensor], device):
+    def __init__(self, fn: Callable[[torch.Tensor], torch.Tensor], device,
+                 mesh=None):
+        if mesh is not None and mesh.cards() > 1:
+            raise NotImplementedError(
+                f"CUDA graph capture across {mesh.cards()} cards (mesh "
+                f"{mesh}) is not built; lay the mesh over one card "
+                f"(--host-devices) to serve it through graphs")
         self.fn = fn
         self.device = torch.device(device)
         self.captures = 0

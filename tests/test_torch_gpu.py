@@ -410,7 +410,10 @@ def test_launcher_serves_through_the_kernels_on_card():
                              "--calib-steps", "1", "--device", "cuda"])
     torch.cuda.synchronize()
     assert out["packed_layers"] == 14
-    assert _build.LAUNCHES["fused_gemm_output"] == 14 * out["fused_forwards"]
+    # fused serving, then stage 5's 1-device mesh: K4 once a layer a forward
+    assert [r["mesh"] for r in out["sharded"]] == [[1, 1]]
+    assert _build.LAUNCHES["fused_gemm_output"] == 14 * (
+        out["fused_forwards"] + out["sharded_forwards_per_mesh"])
     serving = ("input_transform", "wino_gemm", "output_transform",
                "fused_gemm_output")
     assert all(_build.LAUNCHES[k] > 0 for k in serving)
@@ -581,3 +584,68 @@ def test_planner_and_autotune_run_the_kernels_on_card(m):
                                     m=m, requant_bits=bits, tile=tile)
             assert torch.equal(_bits(got), _bits(want)), (m, bits, tile)
         assert spec_n == m + 2
+
+
+@pytest.mark.parametrize("x_shape,cout,meshes", [
+    # the stem: Cin = 3 takes the mainloop's byte path in every slab
+    ((8, 32, 32, 3), 64, ((1, 1), (2, 1), (4, 1), (1, 2), (2, 2))),
+    # Cout 64: 32 a shard at a model extent of 2
+    ((8, 32, 32, 64), 64, ((1, 1), (2, 1), (4, 1), (1, 2), (2, 2))),
+    # T = 18 tiles at F(4,3) over a (4, 2) mesh: 5-row slabs (K4 tiles
+    # taller than the slab, K3's chunk tail)
+    ((2, 12, 12, 4), 8, ((4, 2),))])
+def test_sharded_serving_is_bitwise_single_device_on_card(x_shape, cout,
+                                                          meshes):
+    """``execute_int8_sharded`` over meshes of logical devices on the one
+    card, through K1 and K4 (calibrated) or K2 → K3 (dynamic requant) per
+    slab: bit for bit with the single-device fused and staged calls,
+    F(2,3)/F(4,3)/F(6,3) in both bases, Hadamard off/8/9."""
+    from repro_torch.core.quantization import QuantConfig
+    from repro_torch.launch.mesh import make_serving_mesh
+    dev = _card()
+    rng = np.random.default_rng(sum(x_shape) + cout)
+    x = torch.from_numpy(rng.normal(size=x_shape).astype(np.float32)).to(dev)
+    w = torch.from_numpy((rng.normal(size=(3, 3, x_shape[3], cout)) * 0.1)
+                         .astype(np.float32)).to(dev)
+    for m, base, bits in CASES:
+        spec0 = WinogradSpec(m=m, r=3, base=base)
+        u_q, w_s = ops.prepare_weights_int8(w, spec0)
+        tiles = ops._extract(x, m, 3, spec0.n, "same")
+        geom = ops._geometry(x.shape, m, 3, "same")
+        in_s = ops.scales_from_abs_max(ops._tiles_abs_max(tiles, spec0))
+        spec = WinogradSpec(m=m, r=3, base=base,
+                            quant=QuantConfig(hadamard_bits=bits))
+        h = None
+        if bits is not None:
+            _, a = ops.execute_int8(tiles, u_q, w_s, in_s, spec=spec,
+                                    geom=geom, hadamard_bits=bits,
+                                    with_stats=True)
+            h = a.reshape(-1, 1)
+        ref = ops.execute_int8(tiles, u_q, w_s, in_s, h, spec=spec,
+                               geom=geom, hadamard_bits=bits, fused=True)
+        ref_dyn = (ops.execute_int8(tiles, u_q, w_s, in_s, None, spec=spec,
+                                    geom=geom, hadamard_bits=bits)
+                   if bits is not None else None)
+        for dd, dm in meshes:
+            mesh = make_serving_mesh(dd, dm, host_devices=dd * dm,
+                                     device=dev)
+            ma = "model" if dm > 1 else None
+            _build.reset_launches()
+            y = ops.execute_int8_sharded(tiles, u_q, w_s, in_s, h,
+                                         spec=spec, geom=geom, mesh=mesh,
+                                         hadamard_bits=bits, model_axis=ma)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES["input_transform"] == 1
+            assert _build.LAUNCHES["fused_gemm_output"] == dd * dm
+            assert torch.equal(_bits(y), _bits(ref)), (m, base, bits, dd, dm)
+            if bits is None:
+                continue
+            _build.reset_launches()
+            yd = ops.execute_int8_sharded(tiles, u_q, w_s, in_s, None,
+                                          spec=spec, geom=geom, mesh=mesh,
+                                          hadamard_bits=bits, model_axis=ma)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES["wino_gemm"] == dd * dm
+            assert _build.LAUNCHES["output_transform"] == dd * dm
+            assert torch.equal(_bits(yd), _bits(ref_dyn)), \
+                ("dynamic", m, base, bits, dd, dm)

@@ -403,10 +403,11 @@ def test_engine_serves_the_tuned_tile_only_at_its_T(monkeypatch):
         eng.conv2d(torch.from_numpy(x[:1]), None, layer="c")
     assert seen == [tile, None]
     # warm-up with autotune tunes the other T (on the CPU: the default,
-    # unmeasured) and later calls at it take that tile
+    # unmeasured) and later calls at it take that tile; it is keyed by
+    # the call's (T, Cout), since a mesh's slabs have their own Cout
     eng.warmup([(1, 10, 10, 8)],
                forward=lambda x: eng.conv2d(x, None, layer="c"))
-    assert eng.tuned_tiles == {("c", 9): fused_tile(6, 9, 12, True)}
+    assert eng.tuned_tiles == {("c", 9, 12): fused_tile(6, 9, 12, True)}
     with torch.inference_mode():
         eng.conv2d(torch.from_numpy(x[:1]), None, layer="c")
     assert seen[2:] == [fused_tile(6, 9, 12, True)] * 2
