@@ -88,7 +88,42 @@ fails the run:
               call; ``launch/serve`` through a 2 × 2 mesh on the card
               (1,024 Poisson requests at a quarter of the mesh's eager
               bucket-64 images/s) with the serving gates; padded parity
-              on a 2 × 2 mesh.
+              on a 2 × 2 mesh;
+9. lm       — LM serving (``repro_torch.launch.steps.generate``: prefill
+              → grow the cache → greedy decode), random bf16 weights
+              drawn on the card from seed 0, batch 4, a 2,048-token
+              prompt and 64 decode steps, at full width and full depth:
+              recurrentgemma-2b (its quantized 1-D Toom-Cook conv on,
+              F(4,4) Legendre, 9-bit Hadamard, counted per recurrent
+              layer; the decode wraps its 2,048-slot ring buffer),
+              llama3.2-1b, qwen2-moe-a2.7b, rwkv6-7b, internvl2-26b (256
+              patch prefixes inside the 2,048) and hubert-xlarge
+              (encoder: forward only). Each model is freed before the
+              next. Cut: kimi-k2-1t-a32b, command-r-plus-104b and
+              qwen1.5-32b do not fit one 80 GB card at full width; they
+              share their code paths with the families above and the CPU
+              tests run their tiny variants. Gates: every logit finite;
+              per model at full width in fp32 (TF32 off) at depth 2 (3
+              for the hybrid), Winograd conv off, prefill's last logits
+              equal ``forward`` at that position and one decode step
+              ``forward`` at the next (rtol 2e-2, atol 2e-3, the JAX
+              package's ``test_prefill_matches_decode``; the MoE's
+              capacity factor raised to n_experts / top_k so that no
+              token drops, since capacity drops depend on the batch's
+              token count); each family's tiny variant on the card
+              against the CPU (weights drawn on the CPU): prefill and 8
+              decode steps fed the CPU's greedy tokens, logits and every
+              cache leaf at rtol = atol = 1e-4 (TF32 off), the hybrid's
+              Winograd conv on the same inputs at the fake-quant tier of
+              tests/test_torch_conv1d.py (at most 0.5 % of the outputs
+              past 1e-4, each within one step of the output cast), the
+              outputs on the card; the gates' and these weights scaled to each matrix's
+              input width (ROADMAP.md, "Recorded differences"). Prints
+              per model
+              prefill tokens/s, decode ms a step (CUDA events), peak
+              memory and the decode step's floor (its weight bytes over
+              3.35 TB/s), and the device's busy share of a traced
+              prefill and of 4 traced decode steps with their top kernels.
 
 Phase 5's device-busy share is the union of the trace's device intervals
 over the traced window, so it cannot pass 100 %.
@@ -198,6 +233,16 @@ SHARD_LAYERS = (("stem", (BATCH, 32, 32, 3), 64),
                 ("s0", (BATCH, 32, 32, 64), 64))
 SMALL_SLAB = ((2, 12, 12, 4), 8, (4, 2))
 SHARD_SERVE_REQUESTS = 1024
+# LM serving (phase 9): the models served at full width and depth, the
+# batch, prompt and decode steps; the fp32 prefill/decode-vs-forward
+# gates (batch, text tokens of the full sequence and of the prompt, the
+# depth of each family) and the card-vs-CPU runs (tiny variants).
+LM_MODELS = ("recurrentgemma-2b", "llama3.2-1b", "qwen2-moe-a2.7b",
+             "rwkv6-7b", "internvl2-26b", "hubert-xlarge")
+LM_BATCH, LM_PROMPT, LM_DECODE = 4, 2048, 64
+LM_GATE = dict(B=2, S=32, prompt=16, rtol=2e-2, atol=2e-3)
+LM_GATE_DEPTH = {"hybrid": 3}
+LM_TINY = dict(B=2, prompt=16, steps=8, tol=1e-4)
 
 
 def fail(msg: str) -> None:
@@ -813,6 +858,360 @@ def sharded_phase(dev) -> tuple:
         "for bit the rows served alone, n = 1, 2, 3, 5, 8")
     main_launches = {k: launches[k] + serve_launches[k] for k in launches}
     return rep, main_launches
+
+
+def lm_phase(dev, smi: str) -> dict:
+    """Phase 9 (see the module docstring). Returns its report."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import ARCHS, tiny_variant
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.launch.steps import (generate, grow_cache,
+                                          init_lm_params, make_serve_setup)
+    from repro_torch.models import registry, rglru
+    from repro_torch.models.param import _leaves, init_params, tree_map
+
+    rep: dict = {"models": {}, "gates": {}, "card_vs_cpu": {}}
+    mm = torch.backends.cuda.matmul
+    tf32 = mm.allow_tf32
+    mm.allow_tf32 = False     # fp32 means fp32 here (PyTorch's default)
+
+    def leaves(tree):
+        out = []
+        tree_map(out.append, tree)
+        return out
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def fan_in_scaled(params, model, cfg):
+        """Each matrix scaled to the fan-in of its input width, the scale
+        of the CPU parity tests. The init's fan-in is a stacked leaf's
+        depth (1 for the hybrid's one group: std 1); there the hybrid's
+        fp32 forward is ~1e-3 from fp64, and two fp32 orders of summation
+        disagree as much (ROADMAP.md, "Recorded differences")."""
+        for path, spec in _leaves(model.param_specs(cfg)):
+            if spec.init == "normal" and len(spec.shape) > 1:
+                node = params
+                for k in path[:-1]:
+                    node = node[k]
+                node[path[-1]].mul_((spec.shape[0] / spec.shape[-2]) ** 0.5)
+        return params
+
+    def traced(fn, per: int) -> dict:
+        """``fn()`` under the profiler: the device's busy share of the
+        window, the count of device intervals and the top kernels, per
+        ``per``."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.serving.metrics import device_busy
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            e0.record()
+            fn()
+            e1.record()
+            torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        busy, _ = device_busy(prof)
+        window = e0.elapsed_time(e1)      # the events' window, not the trace's
+        n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+        top = sorted(device_ms_by_kernel(prof, per).items(),
+                     key=lambda kv: -kv[1])[:5]
+        return {"busy_ms": busy / per, "window_ms": window / per,
+                "busy_share": busy / window if window else 0.0,
+                "device_intervals": n / per, "top_ms": dict(top),
+                "read_s": time.perf_counter() - t1}
+
+    # 1. full width and depth, bf16: prefill -> grow -> greedy decode
+    wino_calls = [0]
+    wino_conv = rglru._depthwise_wino_conv
+
+    def counted(*a, **k):
+        wino_calls[0] += 1
+        return wino_conv(*a, **k)
+    for arch in LM_MODELS:
+        cfg = ARCHS[arch]
+        model = registry.get_model(cfg)
+        free()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = init_lm_params(cfg, 0, dev)
+        torch.cuda.synchronize(dev)
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ps = leaves(params)
+        if not all(t.is_cuda for t in ps):
+            fail(f"lm {arch}: parameters not on the card")
+        n_params = sum(t.numel() for t in ps)
+        w_bytes = sum(t.numel() * t.element_size() for t in ps)
+        # a decode step reads every weight but the input-only ones: the
+        # frontend projection, and an untied embedding table but for its
+        # B rows (a tied one is the unembedding, read whole)
+        skip = ["frontend_proj"] + ([] if cfg.tie_embeddings else ["embed"])
+        dec_bytes = w_bytes - sum(params[k].numel() * params[k].element_size()
+                                  for k in skip if k in params)
+        if not cfg.tie_embeddings and "embed" in params:
+            dec_bytes += LM_BATCH * cfg.d_model * params["embed"].element_size()
+        r = {"params": n_params, "weight_bytes": w_bytes, "init_s": init_s,
+             "init_peak_bytes": init_peak, "batch": LM_BATCH,
+             "prompt": LM_PROMPT}
+        batch = batch_at(cfg, LM_PROMPT, LM_BATCH, 0, mode="prefill",
+                         device=dev)
+        if cfg.is_encoder:
+            with torch.inference_mode():
+                model.forward(params, batch_at(cfg, 64, LM_BATCH, 1,
+                                               mode="prefill", device=dev),
+                              cfg)                      # warm-up
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                logits, _ = model.forward(params, batch, cfg)
+                e1.record()
+                torch.cuda.synchronize(dev)
+            ms = e0.elapsed_time(e1)
+            finite = bool(torch.isfinite(logits).all())
+            if not logits.is_cuda or tuple(logits.shape) != (
+                    LM_BATCH, LM_PROMPT, cfg.vocab):
+                fail(f"lm {arch}: logits {tuple(logits.shape)} on "
+                     f"{logits.device}")
+            r.update(forward_ms=ms, tokens_s=LM_BATCH * LM_PROMPT / ms * 1e3)
+            del logits
+        else:
+            run = RunConfig(model=cfg, seq_len=LM_PROMPT + LM_DECODE,
+                            global_batch=LM_BATCH)
+            warm = batch_at(cfg, cfg.n_prefix + 64, LM_BATCH, 1,
+                            mode="prefill", device=dev)
+            generate(run, params, warm, 2, device=dev)   # warm-up
+            rglru._depthwise_wino_conv = counted
+            wino_calls[0] = 0
+            try:
+                out = generate(run, params, batch, LM_DECODE, device=dev,
+                               keep_logits=True)
+            finally:
+                rglru._depthwise_wino_conv = wino_conv
+            lg = torch.stack(out["logits"])
+            finite = bool(torch.isfinite(lg).all())
+            if not lg.is_cuda or tuple(lg.shape) != (
+                    LM_DECODE + 1, LM_BATCH, cfg.vocab):
+                fail(f"lm {arch}: logits {tuple(lg.shape)} on {lg.device}")
+            steps = sorted(out["decode_ms"])
+            r.update(prefill_ms=out["prefill_ms"],
+                     tokens_s=LM_BATCH * LM_PROMPT / out["prefill_ms"] * 1e3,
+                     decode_ms_mean=sum(steps) / len(steps),
+                     decode_ms_median=steps[len(steps) // 2],
+                     decode_ms_first=out["decode_ms"][0],
+                     decode_floor_ms=dec_bytes / HBM_BYTES_S * 1e3,
+                     decode_weight_bytes=dec_bytes,
+                     sample=out["tokens"][0, :8].tolist())
+            # the device's share of a traced prefill and of 4 traced
+            # decode steps (at the last positions of the run's cache)
+            pre = make_serve_setup(run, "prefill", dev)
+            dec = make_serve_setup(run, "decode", dev)
+            r["prefill_trace"] = traced(lambda: pre(params, batch), 1)
+            cache, tok = out["cache"], out["tokens"][:, -1:]
+
+            def four():
+                for i in range(4):
+                    pos = torch.full((LM_BATCH,), LM_PROMPT + LM_DECODE
+                                     - 4 + i, dtype=torch.int32, device=dev)
+                    dec(params, cache, tok, pos)
+            r["decode_trace"] = traced(four, 4)
+            if cfg.use_winograd_conv:
+                n_rec = sum(k == "rec" for _, k in
+                            rglru.layer_params(params, cfg))
+                r["winograd_convs"] = wino_calls[0]
+                if wino_calls[0] != n_rec:
+                    fail(f"lm {arch}: {wino_calls[0]} quantized Toom-Cook "
+                         f"convs in prefill, {n_rec} recurrent layers")
+                kv = out["cache"]["k"].shape[2]
+                r["ring_slots"] = kv
+                if LM_PROMPT + LM_DECODE <= kv:
+                    fail(f"lm {arch}: decode did not wrap the ring buffer")
+            del out, lg, cache, pre, dec, four    # the steps hold params
+        r["finite"] = finite
+        r["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+        r["wall_s"] = time.perf_counter() - t0
+        rep["models"][arch] = r
+        if cfg.is_encoder:
+            log(f"lm {arch}: {n_params / 1e9:.3f} B params; forward "
+                f"B={LM_BATCH} S={LM_PROMPT} {r['forward_ms']:.2f} ms "
+                f"({r['tokens_s']:.0f} tokens/s); peak "
+                f"{r['peak_mem_bytes'] / 2**30:.2f} GiB; {smi}")
+        else:
+            log(f"lm {arch}: {n_params / 1e9:.3f} B params "
+                f"({w_bytes / 1e9:.2f} GB); prefill B={LM_BATCH} "
+                f"S={LM_PROMPT} {r['prefill_ms']:.2f} ms "
+                f"({r['tokens_s']:.0f} tokens/s); decode "
+                f"{r['decode_ms_median']:.3f} ms a step (median of "
+                f"{LM_DECODE}; mean {r['decode_ms_mean']:.3f}, first "
+                f"{r['decode_ms_first']:.3f}) against its floor "
+                f"{r['decode_floor_ms']:.3f} ms "
+                f"({dec_bytes / 1e9:.2f} GB of weights / 3.35 TB/s); "
+                f"peak {r['peak_mem_bytes'] / 2**30:.2f} GiB serving, "
+                f"{init_peak / 2**30:.2f} GiB drawing the weights "
+                f"({init_s:.1f} s); {r['wall_s']:.1f} s in all"
+                + (f"; {r['winograd_convs']} quantized Toom-Cook convs, "
+                   f"ring of {r['ring_slots']} slots wrapped"
+                   if "winograd_convs" in r else "") + f"; {smi}")
+            for what in ("prefill_trace", "decode_trace"):
+                tr = r[what]
+                log(f"  {arch} {what.split('_')[0]} traced: device busy "
+                    f"{tr['busy_ms']:.3f} of {tr['window_ms']:.3f} ms "
+                    f"({100 * tr['busy_share']:.1f} %), "
+                    f"{tr['device_intervals']:.0f} device intervals (trace "
+                    f"read in {tr['read_s']:.1f} s); top "
+                    + ", ".join(f"{k[:60]} {v:.3f}"
+                                for k, v in tr["top_ms"].items()))
+        if not finite:
+            fail(f"lm {arch}: non-finite logits")
+        del params, batch, ps
+    free()
+
+    # 2. fp32 at full width, reduced depth: prefill / decode vs forward
+    t0 = time.perf_counter()
+    g = LM_GATE
+    for arch in LM_MODELS:
+        cfg0 = ARCHS[arch]
+        if cfg0.is_encoder:
+            continue
+        changes = dict(n_layers=LM_GATE_DEPTH.get(cfg0.family, 2),
+                       param_dtype="float32", use_winograd_conv=False)
+        if cfg0.n_experts:
+            changes["capacity_factor"] = cfg0.n_experts / cfg0.top_k
+        cfg = dataclasses.replace(cfg0, **changes)
+        model = registry.get_model(cfg)
+        params = fan_in_scaled(init_lm_params(cfg, 1, dev), model, cfg)
+        S = g["S"] + cfg.n_prefix
+        P = g["prompt"] + cfg.n_prefix
+        full = batch_at(cfg, S, g["B"], 2, mode="prefill", device=dev)
+        prompt = dict(full, tokens=full["tokens"][:, :g["prompt"]])
+        with torch.inference_mode():
+            ref, _ = model.forward(params, full, cfg)
+            cache, last = model.prefill(params, prompt, cfg)
+            cache = grow_cache(cfg, cache, g["B"], S)
+            pos = torch.full((g["B"],), P, dtype=torch.int32, device=dev)
+            nxt, _ = model.decode_step(
+                params, cache, full["tokens"][:, g["prompt"]:][:, :1], pos,
+                cfg)
+        errs = {}
+        for what, got, want in (("prefill", last, ref[:, P - 1]),
+                                ("decode", nxt, ref[:, P])):
+            d = (got - want).abs()
+            errs[what] = float(d.max())
+            if not bool((d <= g["atol"] + g["rtol"] * want.abs()).all()):
+                fail(f"lm gate {arch} {what}: {errs[what]:.3e} off "
+                     f"forward at position (rtol {g['rtol']}, atol "
+                     f"{g['atol']})")
+        rep["gates"][arch] = dict(depth=cfg.n_layers, **errs)
+        log(f"lm gate {arch} (full width, depth {cfg.n_layers}, fp32, TF32 "
+            f"off): prefill vs forward {errs['prefill']:.2e}, decode vs "
+            f"forward {errs['decode']:.2e} (max abs)")
+        del params, full, prompt, ref, cache, last, nxt
+        free()
+
+    rep["gates_wall_s"] = time.perf_counter() - t0
+    log(f"lm gates: {rep['gates_wall_s']:.1f} s")
+
+    # 3. card against CPU, tiny variants of each family
+    t0 = time.perf_counter()
+    t = LM_TINY
+    # the six families, one model each (those served above)
+    cases = [(a, {"use_winograd_conv": False}
+              if ARCHS[a].use_winograd_conv else {}) for a in LM_MODELS]
+    cases.append(("recurrentgemma-2b", {}))         # the conv on
+    for arch, changes in cases:
+        cfg = dataclasses.replace(tiny_variant(ARCHS[arch]), **changes)
+        model = registry.get_model(cfg)
+        p_cpu = fan_in_scaled(init_params(model.param_specs(cfg),
+                                          torch.Generator().manual_seed(3)),
+                              model, cfg)
+        p_dev = tree_map(lambda x: x.to(dev), p_cpu)
+        S = t["prompt"] + cfg.n_prefix
+        b_cpu = batch_at(cfg, S, t["B"], 5, mode="prefill")
+        b_dev = {k: v.to(dev) for k, v in b_cpu.items()}
+        name = arch + (" conv on" if cfg.use_winograd_conv else "")
+        diffs = {}
+
+        def close(what, got, want, tol=t["tol"]):
+            if not got.is_cuda:
+                fail(f"lm card-vs-CPU {name} {what}: not on the card")
+            got = got.cpu().float()
+            want = want.float()
+            d = (got - want).abs()
+            diffs[what] = float(d.max()) if d.numel() else 0.0
+            if not bool((d <= tol + tol * want.abs()).all()):
+                fail(f"lm card-vs-CPU {name} {what}: {diffs[what]:.3e} "
+                     f"past rtol = atol = {tol}")
+        if cfg.is_encoder:
+            with torch.inference_mode():
+                want, _ = model.forward(p_cpu, b_cpu, cfg)
+                got, _ = model.forward(p_dev, b_dev, cfg)
+            close("forward", got, want)
+        elif cfg.use_winograd_conv:
+            seen = []
+            conv = rglru._conv1d
+
+            def record(p, x, c):
+                y = conv(p, x, c)
+                seen.append((p, x, y))
+                return y
+            rglru._conv1d = record
+            try:
+                with torch.inference_mode():
+                    model.prefill(p_cpu, b_cpu, cfg)
+            finally:
+                rglru._conv1d = conv
+            # the same inputs on the card, at the fake-quant tier of
+            # tests/test_torch_conv1d.py: each package sums the transforms
+            # in its own order, which can flip a rounding step
+            flips = []
+            for i, (p, x, want) in enumerate(seen):
+                with torch.inference_mode():
+                    got = conv({k: v.to(dev) for k, v in p.items()},
+                               x.to(dev), cfg)
+                if not got.is_cuda:
+                    fail(f"lm card-vs-CPU {name}: conv not on the card")
+                d = (got.cpu() - want).abs()
+                n = int((d > 1e-4 * (1 + want.abs())).sum())
+                step = float(want.abs().max()) / 127 * (1 + 1e-4) + 1e-4
+                flips.append(n)
+                diffs[f"conv {i}"] = float(d.max())
+                if n > 0.005 * d.numel() or float(d.max()) > step:
+                    fail(f"lm card-vs-CPU {name} conv {i}: {n} of "
+                         f"{d.numel()} outputs past 1e-4, by up to "
+                         f"{float(d.max()):.3e} (one step {step:.3e})")
+            rep["card_vs_cpu_conv_flips"] = flips
+            diffs["convs"] = len(seen)
+        else:
+            run = RunConfig(model=cfg, seq_len=S + t["steps"],
+                            global_batch=t["B"])
+            o_cpu = generate(run, p_cpu, b_cpu, t["steps"], device="cpu",
+                             keep_logits=True)
+            o_dev = generate(run, p_dev, b_dev, t["steps"], device=dev,
+                             teacher=o_cpu["tokens"][:, :t["steps"]].to(dev),
+                             keep_logits=True)
+            for i, (a, b) in enumerate(zip(o_dev["logits"], o_cpu["logits"])):
+                close(f"logits {i}", a, b)
+            for k in o_cpu["cache"]:
+                close(f"cache {k}", o_dev["cache"][k], o_cpu["cache"][k])
+        worst = max((v for k, v in diffs.items() if k != "convs"),
+                    default=0.0)
+        rep["card_vs_cpu"][name] = dict(diffs, worst=worst)
+        log(f"lm card-vs-CPU {cfg.name}{' (conv on)' if cfg.use_winograd_conv else ''}: "
+            + (f"{diffs['convs']} quantized Toom-Cook convs on the same "
+               f"inputs, outputs past 1e-4: {rep['card_vs_cpu_conv_flips']}"
+               f" of {seen[0][2].numel()} each, worst {worst:.2e}"
+               if "convs" in diffs else
+               f"{len(diffs)} tensors within 1e-4, worst {worst:.2e}"))
+    rep["card_vs_cpu_wall_s"] = time.perf_counter() - t0
+    log(f"lm card-vs-CPU: {rep['card_vs_cpu_wall_s']:.1f} s")
+    mm.allow_tf32 = tf32
+    return rep
 
 
 def main() -> int:
@@ -1675,6 +2074,16 @@ def main() -> int:
     report["sharded_launches"] = sharded_launches
     log(f"phase 8 main-path launches (stage 5 run + sharded serve): "
         f"{sharded_launches}; {report['sharded']['wall_s']:.1f}s in all")
+
+    # 9. lm ----------------------------------------------------------------
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    report["lm"] = lm_phase(dev, smi)
+    report["lm"]["wall_s"] = time.perf_counter() - t0
+    report["lm"]["launches"] = dict(_build.LAUNCHES)
+    log(f"phase 9 (LM serving) {report['lm']['wall_s']:.1f}s; launches of "
+        f"the five kernels (none lies on the LM path): "
+        f"{report['lm']['launches']}")
 
     kernels = []
     for k, (src, replaces) in TPU_KERNELS.items():

@@ -81,7 +81,10 @@ def abs_max_scale(x: torch.Tensor, bits: int,
         amax = x.abs().amax()
     else:
         amax = x.abs().amax(dim=tuple(axis), keepdim=True)
-    return torch.clamp_min(amax, eps) / qmax(bits)
+    # A tensor divisor: CUDA divides by a host number through its
+    # reciprocal, amax · (1/qmax), at times an ulp off the quotient (the
+    # rewrite XLA's algsimp makes); the CPU divides.
+    return torch.clamp_min(amax, eps) / amax.new_full((), qmax(bits))
 
 
 class _FakeQuant(torch.autograd.Function):

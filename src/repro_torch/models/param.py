@@ -3,8 +3,10 @@
 
 Initial values come from a seeded ``torch.Generator``: the same
 structure as the JAX package's init, its own numbers, so a run of the
-port starts from weights of its own. To compute the same network as the
-JAX package, carry its weights across (``resnet.params_from_jax``).
+port starts from weights of its own, drawn on the generator's device (a
+full-width LM is drawn on the card). To compute the same network as the
+JAX package, carry its weights across (``resnet.params_from_jax`` for
+the ResNet, ``params_from_jax`` here for the LMs).
 """
 from __future__ import annotations
 
@@ -12,9 +14,11 @@ import dataclasses
 import math
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
-__all__ = ["ParamSpec", "init_params", "param_count"]
+__all__ = ["ParamSpec", "init_params", "param_count", "params_from_jax",
+           "tree_map", "at_layer"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,7 +27,7 @@ class ParamSpec:
 
     shape: tuple[int, ...]
     axes: tuple[Optional[str], ...]     # logical axis name per dim
-    init: str = "normal"                # normal | zeros | ones
+    init: str = "normal"                # normal | zeros | ones | embed
     scale: float = 1.0                  # stddev multiplier
     dtype: Any = torch.float32
 
@@ -33,16 +37,21 @@ class ParamSpec:
 
 
 def _materialize(spec: ParamSpec, gen: torch.Generator) -> torch.Tensor:
+    dev = gen.device
     if spec.init == "zeros":
-        return torch.zeros(spec.shape, dtype=spec.dtype)
+        return torch.zeros(spec.shape, dtype=spec.dtype, device=dev)
     if spec.init == "ones":
-        return torch.ones(spec.shape, dtype=spec.dtype)
+        return torch.ones(spec.shape, dtype=spec.dtype, device=dev)
     if spec.init == "normal":
         # fan-in scaled normal, fan-in read as in the JAX package
         fan_in = spec.shape[0] if len(spec.shape) > 1 else spec.shape[-1]
         std = spec.scale / math.sqrt(max(fan_in, 1))
-        return (torch.randn(spec.shape, generator=gen) * std).to(spec.dtype)
-    raise ValueError(spec.init)
+    elif spec.init == "embed":
+        std = spec.scale
+    else:
+        raise ValueError(spec.init)
+    x = torch.randn(spec.shape, generator=gen, device=dev)
+    return x.mul_(std).to(spec.dtype)
 
 
 def _leaves(specs, prefix=()):
@@ -54,8 +63,9 @@ def _leaves(specs, prefix=()):
 
 
 def init_params(specs: dict, gen: torch.Generator) -> dict:
-    """Materialize a tree of ParamSpec (nested dicts) on the CPU, drawing
-    from ``gen`` leaf by leaf in sorted-key order."""
+    """Materialize a tree of ParamSpec (nested dicts) on ``gen``'s device
+    (a ``torch.Generator("cuda")`` draws on the card), drawing leaf by
+    leaf in sorted-key order."""
     out: dict = {}
     for path, spec in _leaves(specs):
         node = out
@@ -68,3 +78,33 @@ def init_params(specs: dict, gen: torch.Generator) -> dict:
 def param_count(specs: dict) -> int:
     """Number of scalars a ParamSpec tree declares."""
     return sum(math.prod(s.shape) for _, s in _leaves(specs))
+
+
+def tree_map(fn, tree):
+    """``fn`` over the leaves of a tree of nested dicts."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def at_layer(tree, i: int):
+    """Layer ``i`` of a tree whose leaves are stacked along a leading
+    ``layers`` axis (views, no copy)."""
+    return tree_map(lambda t: t[i], tree)
+
+
+def _tensor_from_numpy(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":            # ml_dtypes: no numpy kind
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def params_from_jax(tree_np, device=None):
+    """The JAX package's LM parameter tree (nested dicts of numpy arrays,
+    e.g. ``jax.tree.map(np.asarray, params)``) → the port's (tensors on
+    ``device``, default CPU). The port keeps JAX's layout, the stacked
+    leading ``layers`` axis included, so the carry is leaf by leaf; a
+    bfloat16 leaf goes across bit for bit."""
+    return tree_map(lambda a: _tensor_from_numpy(a).to(device), tree_np)

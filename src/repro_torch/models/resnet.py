@@ -49,6 +49,8 @@ class ResNetConfig:
     conv_backend: Optional[str] = None   # engine backend for eligible convs
     flex: bool = False           # learnable transform matrices
     num_classes: int = NUM_CLASSES
+    name: str = "resnet18-cifar10"   # the architecture registry's key
+    family: str = "cnn"
 
     @property
     def widths(self):

@@ -74,6 +74,8 @@ EXCLUSIVE = ("tests/test_distributed.py::test_sharded_fused_serving_parity",)
 #: their references): handed to one worker together.
 GROUPED_MODULES = (
     "tests/test_torch_conv1d.py",
+    "tests/test_torch_lm.py",
+    "tests/test_torch_lm_layers.py",
     "tests/test_torch_q8.py",
     "tests/test_torch_resnet.py",
     "tests/test_torch_train.py",

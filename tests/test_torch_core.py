@@ -33,12 +33,15 @@ PORT = REPO / "src" / "repro_torch"
 @pytest.mark.parametrize("m", [2, 4, 6])
 @pytest.mark.parametrize("base", ["canonical", "legendre", "chebyshev"])
 def test_make_matrices_bitwise_equal_to_jax(m, base):
-    ours = tw.make_matrices(tw.WinogradSpec(m=m, r=3, base=base))
-    ref = jw.make_matrices(jw.WinogradSpec(m=m, r=3, base=base))
-    for f in ("AT", "G", "BT", "C", "Cinv", "GP", "BPT", "APT", "CinvT"):
-        a, b = getattr(ours, f), np.asarray(getattr(ref, f))
-        assert a.dtype == b.dtype == np.float32, f
-        np.testing.assert_array_equal(a, b, err_msg=f)
+    # r = 3: the 2-D convs; F(4,4) (r = 4): the hybrid LM's temporal conv
+    for r in (3, 4) if m == 4 else (3,):
+        ours = tw.make_matrices(tw.WinogradSpec(m=m, r=r, base=base))
+        ref = jw.make_matrices(jw.WinogradSpec(m=m, r=r, base=base))
+        for f in ("AT", "G", "BT", "C", "Cinv", "GP", "BPT", "APT",
+                  "CinvT"):
+            a, b = getattr(ours, f), np.asarray(getattr(ref, f))
+            assert a.dtype == b.dtype == np.float32, (r, f)
+            np.testing.assert_array_equal(a, b, err_msg=f"r={r} {f}")
 
 
 def test_quantization_helpers_match_jax():
@@ -74,14 +77,20 @@ def _port_modules():
 
 def test_port_imports_neither_jax_nor_repro():
     mods = _port_modules()
-    assert "repro_torch.kernels.ops" in mods and len(mods) >= 39
+    assert "repro_torch.kernels.ops" in mods and len(mods) >= 57
     assert {"repro_torch.kernels.q8_matmul", "repro_torch.optim.optimizer",
             "repro_torch.launch.train_resnet_qat",
             "repro_torch.core.quantization", "repro_torch.analysis.ranges",
             "repro_torch.analysis.certify", "repro_torch.conv.autotune",
             "repro_torch.conv.planner", "repro_torch.serving.loop",
             "repro_torch.serving.graphs", "repro_torch.serving.loadgen",
-            "repro_torch.launch.serve", "repro_torch.launch.offline"
+            "repro_torch.launch.serve", "repro_torch.launch.offline",
+            "repro_torch.configs", "repro_torch.configs.base",
+            "repro_torch.configs.recurrentgemma_2b",
+            "repro_torch.configs.resnet18_cifar10",
+            "repro_torch.models.layers", "repro_torch.models.transformer",
+            "repro_torch.models.rglru", "repro_torch.models.rwkv6",
+            "repro_torch.models.registry", "repro_torch.launch.steps"
             } <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
