@@ -43,7 +43,15 @@ fails the run:
               14 per fused forward); then
               ``ops.q8_linear`` over the seven projections of one
               llama3.2-1b layer at M = 2048, its K5 launches read around
-              it and its error against fp32 ``x @ w`` gated;
+              it and its error against fp32 ``x @ w`` gated; the scale
+              check: every call of the four int8 scale functions of
+              ``kernels/ops.py`` in that run (``prepare_weights_int8``,
+              ``scales_from_abs_max``, ``_hadamard_rq``, ``_requant``)
+              recorded on the card and computed again on the CPU from
+              the same inputs: the scales, the fp32 weight transforms
+              and u_q bit for bit, and the scale elements and bits the
+              reciprocal form ``tensor / host number`` would move on the
+              card counted beside them;
 5. times    — CUDA-event time of each kernel at each main-path shape
               beside its bound, its plain version and a library yardstick
               (cuDNN ``F.conv2d``, ``torch._int_mm``; the port calls
@@ -123,7 +131,51 @@ fails the run:
               prefill tokens/s, decode ms a step (CUDA events), peak
               memory and the decode step's floor (its weight bytes over
               3.35 TB/s), and the device's busy share of a traced
-              prefill and of 4 traced decode steps with their top kernels.
+              prefill and of 4 traced decode steps with their top kernels;
+10. train   — LM training (``repro_torch.launch.steps.make_train_setup``:
+              chunked CE, microbatched gradients, AdamW written in place),
+              random bf16 weights drawn on the card from seed 0 with each
+              config's moments (fp32 for these), synthetic Markov tokens
+              (``batch_at``), batch 4 of 2,048 positions, microbatch 2,
+              5 steps at lr 3e-4 with 1 warm-up step and 5 total (the
+              JAX launcher's ``build_run``), TF32 off:
+              recurrentgemma-2b (its quantized Toom-Cook conv on) and
+              llama3.2-1b at full width and depth; qwen2-moe-a2.7b,
+              rwkv6-7b, internvl2-26b and hubert-xlarge (frame targets)
+              at full width and depth 2, so that every family's backward
+              runs on the card in the time limit (rwkv6-7b's 7.6 B
+              parameters, their gradients and moments do not fit one
+              80 GB card at full depth). Each model is freed before the
+              next. Prints per model ms a step (median of steps 2-5, CUDA
+              events), tokens/s (positions of the batch), peak memory
+              (steps 3-5),
+              the device's busy share of one traced step and the
+              launches of K1-K5 (0). Gates: every loss and grad norm
+              finite; every parameter leaf whose second moment is nonzero
+              after the first step with lr > 0 moved in that step, or
+              else AdamW's nonzero fp32 update from that step's moments
+              rounds back to each of its bf16 values (such leaves
+              logged); at
+              full width and depth 2 (the hybrid 3) in fp32, weights
+              scaled to each matrix's input width as in phase 9, no MoE
+              token dropped (capacity factor n_experts / top_k), the
+              hybrid's conv off and the MoE's load-balancing loss zeroed
+              (both depend on which rows share a batch: the conv's
+              dynamic fake-quant scales, the aux loss's batch means), 2 x
+              2 microbatched gradients equal the batch of 4's within
+              1e-4 of 1 + each leaf's largest value (the fp32 tier of
+              the CPU parity tests; the worst share of the largest is
+              logged); each family's tiny variant,
+              one train step on the card against the CPU: the loss, every
+              gradient leaf and the updated parameters within rtol = atol
+              = 1e-4 (the parameters where the gradient is above 1e-3 of
+              its leaf's largest; elsewhere Adam's first step turns
+              rounding noise into a full-size update, held at 2 lr), the
+              hybrid with its conv off, and the conv's VJP on the CPU
+              run's conv inputs held as tests/test_torch_lm_train.py
+              holds it; llama3.2-1b's full-width train state (bf16
+              parameters, fp32 moments, count) through ``save`` and
+              ``restore`` bit for bit.
 
 Phase 5's device-busy share is the union of the trace's device intervals
 over the traced window, so it cannot pass 100 %.
@@ -134,8 +186,10 @@ to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -243,6 +297,24 @@ LM_BATCH, LM_PROMPT, LM_DECODE = 4, 2048, 64
 LM_GATE = dict(B=2, S=32, prompt=16, rtol=2e-2, atol=2e-3)
 LM_GATE_DEPTH = {"hybrid": 3}
 LM_TINY = dict(B=2, prompt=16, steps=8, tol=1e-4)
+# LM training (phase 10): (arch, depth or None for full), the batch,
+# positions, microbatch and steps (the JAX launcher's build_run: lr 3e-4,
+# warm-up max(1, steps // 10)); the microbatch gate's positions; the
+# card-vs-CPU step's batch and positions (tiny variants).
+LM_TRAIN_MODELS = (("recurrentgemma-2b", None), ("llama3.2-1b", None),
+                ("qwen2-moe-a2.7b", 2), ("rwkv6-7b", 2),
+                ("internvl2-26b", 2), ("hubert-xlarge", 2))
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_MICRO, LM_TRAIN_STEPS = 4, 2048, 2, 5
+LM_TRAIN_GATE_SEQ = 512
+# microbatched against full-batch fp32 gradients, of each leaf's largest:
+# rwkv6's 1/decay products came to 1.08e-4 on the card (NVIDIA H100 80GB
+# HBM3, 700 W), the other families to 1.1e-5
+LM_TRAIN_MICRO_TOL = 3e-4
+LM_TRAIN_TINY = dict(B=4, S=24, tol=1e-4)
+# Of the hybrid conv's channels, how many may have weight gradients off
+# the fp32 tier (an abs-max STE mask flipped by an ulp of the transformed
+# weights; tests/test_torch_lm_train.py, CONV_CHANNELS_OFF)
+CONV_CHANNELS_OFF_SHARE = 6 / 64
 
 
 def fail(msg: str) -> None:
@@ -860,10 +932,59 @@ def sharded_phase(dev) -> tuple:
     return rep, main_launches
 
 
+def free_card() -> None:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def fan_in_scaled(params, model, cfg):
+    """Each matrix scaled to the fan-in of its input width, the scale
+    of the CPU parity tests. The init's fan-in is a stacked leaf's
+    depth (1 for the hybrid's one group: std 1); there the hybrid's
+    fp32 forward is ~1e-3 from fp64, and two fp32 orders of summation
+    disagree as much (ROADMAP.md, "Recorded differences")."""
+    from repro_torch.models.param import tree_paths
+    for path, spec in tree_paths(model.param_specs(cfg)):
+        if spec.init == "normal" and len(spec.shape) > 1:
+            node = params
+            for k in path[:-1]:
+                node = node[k]
+            node[path[-1]].mul_((spec.shape[0] / spec.shape[-2]) ** 0.5)
+    return params
+
+
+def traced(dev, fn, per: int) -> dict:
+    """``fn()`` under the profiler: the device's busy share of the
+    window, the count of device intervals and the top kernels, per
+    ``per``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.metrics import device_busy
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    busy, _ = device_busy(prof)
+    window = e0.elapsed_time(e1)      # the events' window, not the trace's
+    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    top = sorted(device_ms_by_kernel(prof, per).items(),
+                 key=lambda kv: -kv[1])[:5]
+    return {"busy_ms": busy / per, "window_ms": window / per,
+            "busy_share": busy / window if window else 0.0,
+            "device_intervals": n / per, "top_ms": dict(top),
+            "read_s": time.perf_counter() - t1}
+
+
 def lm_phase(dev, smi: str) -> dict:
     """Phase 9 (see the module docstring). Returns its report."""
     import dataclasses
-    import gc
     import torch
     from repro_torch.configs import ARCHS, tiny_variant
     from repro_torch.configs.base import RunConfig
@@ -871,60 +992,12 @@ def lm_phase(dev, smi: str) -> dict:
     from repro_torch.launch.steps import (generate, grow_cache,
                                           init_lm_params, make_serve_setup)
     from repro_torch.models import registry, rglru
-    from repro_torch.models.param import _leaves, init_params, tree_map
+    from repro_torch.models.param import init_params, tree_leaves, tree_map
 
     rep: dict = {"models": {}, "gates": {}, "card_vs_cpu": {}}
     mm = torch.backends.cuda.matmul
     tf32 = mm.allow_tf32
     mm.allow_tf32 = False     # fp32 means fp32 here (PyTorch's default)
-
-    def leaves(tree):
-        out = []
-        tree_map(out.append, tree)
-        return out
-
-    def free():
-        gc.collect()
-        torch.cuda.empty_cache()
-
-    def fan_in_scaled(params, model, cfg):
-        """Each matrix scaled to the fan-in of its input width, the scale
-        of the CPU parity tests. The init's fan-in is a stacked leaf's
-        depth (1 for the hybrid's one group: std 1); there the hybrid's
-        fp32 forward is ~1e-3 from fp64, and two fp32 orders of summation
-        disagree as much (ROADMAP.md, "Recorded differences")."""
-        for path, spec in _leaves(model.param_specs(cfg)):
-            if spec.init == "normal" and len(spec.shape) > 1:
-                node = params
-                for k in path[:-1]:
-                    node = node[k]
-                node[path[-1]].mul_((spec.shape[0] / spec.shape[-2]) ** 0.5)
-        return params
-
-    def traced(fn, per: int) -> dict:
-        """``fn()`` under the profiler: the device's busy share of the
-        window, the count of device intervals and the top kernels, per
-        ``per``."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        from repro_torch.serving.metrics import device_busy
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            e0.record()
-            fn()
-            e1.record()
-            torch.cuda.synchronize(dev)
-        t1 = time.perf_counter()
-        busy, _ = device_busy(prof)
-        window = e0.elapsed_time(e1)      # the events' window, not the trace's
-        n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
-        top = sorted(device_ms_by_kernel(prof, per).items(),
-                     key=lambda kv: -kv[1])[:5]
-        return {"busy_ms": busy / per, "window_ms": window / per,
-                "busy_share": busy / window if window else 0.0,
-                "device_intervals": n / per, "top_ms": dict(top),
-                "read_s": time.perf_counter() - t1}
 
     # 1. full width and depth, bf16: prefill -> grow -> greedy decode
     wino_calls = [0]
@@ -936,7 +1009,7 @@ def lm_phase(dev, smi: str) -> dict:
     for arch in LM_MODELS:
         cfg = ARCHS[arch]
         model = registry.get_model(cfg)
-        free()
+        free_card()
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         params = init_lm_params(cfg, 0, dev)
@@ -944,7 +1017,7 @@ def lm_phase(dev, smi: str) -> dict:
         init_s = time.perf_counter() - t0
         init_peak = torch.cuda.max_memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        ps = leaves(params)
+        ps = tree_leaves(params)
         if not all(t.is_cuda for t in ps):
             fail(f"lm {arch}: parameters not on the card")
         n_params = sum(t.numel() for t in ps)
@@ -1012,7 +1085,7 @@ def lm_phase(dev, smi: str) -> dict:
             # decode steps (at the last positions of the run's cache)
             pre = make_serve_setup(run, "prefill", dev)
             dec = make_serve_setup(run, "decode", dev)
-            r["prefill_trace"] = traced(lambda: pre(params, batch), 1)
+            r["prefill_trace"] = traced(dev, lambda: pre(params, batch), 1)
             cache, tok = out["cache"], out["tokens"][:, -1:]
 
             def four():
@@ -1020,7 +1093,7 @@ def lm_phase(dev, smi: str) -> dict:
                     pos = torch.full((LM_BATCH,), LM_PROMPT + LM_DECODE
                                      - 4 + i, dtype=torch.int32, device=dev)
                     dec(params, cache, tok, pos)
-            r["decode_trace"] = traced(four, 4)
+            r["decode_trace"] = traced(dev, four, 4)
             if cfg.use_winograd_conv:
                 n_rec = sum(k == "rec" for _, k in
                             rglru.layer_params(params, cfg))
@@ -1070,7 +1143,7 @@ def lm_phase(dev, smi: str) -> dict:
         if not finite:
             fail(f"lm {arch}: non-finite logits")
         del params, batch, ps
-    free()
+    free_card()
 
     # 2. fp32 at full width, reduced depth: prefill / decode vs forward
     t0 = time.perf_counter()
@@ -1112,7 +1185,7 @@ def lm_phase(dev, smi: str) -> dict:
             f"off): prefill vs forward {errs['prefill']:.2e}, decode vs "
             f"forward {errs['decode']:.2e} (max abs)")
         del params, full, prompt, ref, cache, last, nxt
-        free()
+        free_card()
 
     rep["gates_wall_s"] = time.perf_counter() - t0
     log(f"lm gates: {rep['gates_wall_s']:.1f} s")
@@ -1213,6 +1286,479 @@ def lm_phase(dev, smi: str) -> dict:
     mm.allow_tf32 = tf32
     return rep
 
+
+@contextlib.contextmanager
+def recording_scales():
+    """Every call of the four int8 scale functions of ``kernels/ops.py``
+    inside the block recorded (its inputs and the scales it returned),
+    wherever the caller imported the function from: a dict name → list
+    of records, for ``scale_check``."""
+    from repro_torch.conv import engine, packing
+    from repro_torch.kernels import ops
+    calls = {k: [] for k in ("prepare_weights_int8", "scales_from_abs_max",
+                             "_hadamard_rq", "_requant")}
+
+    def recorded(name, fn):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            if name == "prepare_weights_int8":      # (w, spec)
+                calls[name].append((a[0].detach().clone(), a[1],
+                                    (out[0].clone(), out[1].clone())))
+            elif name == "_requant":                # (hf, amax, bits)
+                calls[name].append((a[1].clone(), a[2], out[1].clone()))
+            elif name == "_hadamard_rq":            # (h_amax, bits)
+                calls[name].append((a[0].clone(), a[1], out.clone()))
+            else:                                   # (amax,)
+                calls[name].append((a[0].clone(), out.clone()))
+            return out
+        return call
+    with contextlib.ExitStack() as stack:
+        for name in calls:
+            wrapped = recorded(name, getattr(ops, name))
+            for mod in (ops, engine, packing):
+                if hasattr(mod, name):
+                    stack.enter_context(mock.patch.object(mod, name,
+                                                          wrapped))
+        yield calls
+
+
+def scale_check(records: dict) -> dict:
+    """Phase 4's scale check (see the module docstring): each recorded
+    card call of the four scale functions against the CPU on the same
+    inputs, beside the parent's reciprocal form on the card. Fails on a
+    scale the card computes otherwise than the CPU."""
+    import torch
+    from repro_torch.core.quantization import qmax
+    from repro_torch.kernels import ops
+
+    def bits_of(t):
+        return t.detach().cpu().contiguous().view(torch.int32)
+
+    def moved(a, b):
+        """(elements, bits) where fp32 tensors a and b differ."""
+        x = bits_of(a) ^ bits_of(b)
+        n_bits = sum(bin(int(v) & 0xFFFFFFFF).count("1")
+                     for v in x[x != 0].tolist())
+        return int((x != 0).sum()), n_bits
+
+    rep = {}
+
+    def tally(name, old, new, cpu):
+        r = rep.setdefault(name, {"calls": 0, "scales": 0,
+                                  "moved_before": [0, 0],
+                                  "moved_after": [0, 0]})
+        r["calls"] += 1
+        r["scales"] += cpu.numel()
+        for key, card in (("moved_before", old), ("moved_after", new)):
+            e, b = moved(card, cpu)
+            r[key][0] += e
+            r[key][1] += b
+    for amax, out in records["scales_from_abs_max"]:
+        old = torch.clamp_min(amax, 1e-12).reshape(-1, 1) / 127.0
+        tally("scales_from_abs_max", old, out,
+              ops.scales_from_abs_max(amax.cpu()))
+    for h, bits, out in records["_hadamard_rq"]:
+        old = torch.clamp_min(h.reshape(-1, 1), 1e-12) / qmax(bits)
+        tally("_hadamard_rq", old, out, ops._hadamard_rq(h.cpu(), bits))
+    for amax, bits, out in records["_requant"]:
+        old = (torch.clamp_min(amax, 1e-12) / qmax(bits))[:, :, 0]
+        cpu = ops._requant(torch.zeros_like(amax.cpu()), amax.cpu(), bits)[1]
+        tally("_requant", old, out, cpu)
+    w_rep = rep["prepare_weights_int8"] = {
+        "calls": 0, "scales": 0, "transform_elements_apart": 0,
+        "moved_before": [0, 0], "moved_after": [0, 0], "u_q_apart": 0}
+    for w, spec, (u_q, s_w) in records["prepare_weights_int8"]:
+        u_card = ops._transformed_weights(w, spec)
+        u_cpu = ops._transformed_weights(w.cpu(), spec)
+        uq_cpu, sw_cpu = ops.prepare_weights_int8(w.cpu(), spec)
+        old = torch.clamp_min(u_card.abs().amax(dim=(1, 2), keepdim=True)
+                              / 127.0, 1e-12).reshape(-1, 1)
+        w_rep["calls"] += 1
+        w_rep["scales"] += sw_cpu.numel()
+        w_rep["transform_elements_apart"] += moved(u_card, u_cpu)[0]
+        for key, card in (("moved_before", old), ("moved_after", s_w)):
+            e, b = moved(card, sw_cpu)
+            w_rep[key][0] += e
+            w_rep[key][1] += b
+        w_rep["u_q_apart"] += int((u_q.cpu() != uq_cpu).sum())
+    for name, r in rep.items():
+        log(f"scale check {name}: {r['calls']} calls of phase 4, "
+            f"{r['scales']} scales; against the CPU on the same inputs, "
+            f"the reciprocal form (tensor / host number) on the card moves "
+            f"{r['moved_before'][0]} scales ({r['moved_before'][1]} bits), "
+            f"the exact division {r['moved_after'][0]} "
+            f"({r['moved_after'][1]} bits)"
+            + (f"; the fp32 weight transforms {r['transform_elements_apart']}"
+               f" elements apart, u_q {r['u_q_apart']} apart"
+               if name == "prepare_weights_int8" else ""))
+    for name, r in rep.items():
+        if r["moved_after"][0] or r.get("transform_elements_apart") or \
+                r.get("u_q_apart"):
+            fail(f"scale check {name}: the card's scales differ from the "
+                 f"CPU's: {r}")
+        if not r["calls"]:
+            fail(f"scale check {name}: not called in phase 4")
+    return rep
+
+
+def train_phase(dev, smi: str) -> dict:
+    """Phase 10 (see the module docstring). Returns its report."""
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch.checkpoint.checkpoint import restore, save
+    from repro_torch.configs import ARCHS, tiny_variant
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.kernels import _build
+    from repro_torch.launch import steps
+    from repro_torch.models import registry, rglru
+    from repro_torch.models.param import init_params, tree_leaves, tree_map
+    from repro_torch.optim.optimizer import adamw_init
+
+    rep: dict = {"models": {}, "microbatch_gates": {}, "card_vs_cpu": {}}
+    mm = torch.backends.cuda.matmul
+    tf32 = mm.allow_tf32
+    mm.allow_tf32 = False
+
+    def build_run(cfg, **kw):
+        # the JAX launcher's build_run: lr 3e-4, warm-up max(1, steps // 10)
+        base = dict(model=cfg, seq_len=LM_TRAIN_SEQ, global_batch=LM_TRAIN_BATCH,
+                    microbatch=LM_TRAIN_MICRO, lr=3e-4,
+                    total_steps=LM_TRAIN_STEPS,
+                    warmup_steps=max(1, LM_TRAIN_STEPS // 10))
+        return RunConfig(**{**base, **kw})
+
+    # 1. full width: 5 train steps of each model
+    for arch, depth in LM_TRAIN_MODELS:
+        cfg = ARCHS[arch]
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        free_card()
+        t0 = time.perf_counter()
+        run = build_run(cfg)
+        params, opt = steps.init_train_state(run, 0, dev)
+        ps = tree_leaves(params)
+        if not all(t.is_cuda for t in ps + tree_leaves(opt)):
+            fail(f"train {arch}: train state not on the card")
+        n_params = sum(t.numel() for t in ps)
+        setup = steps.make_train_setup(run, dev)
+        torch.cuda.synchronize(dev)
+        init_s = time.perf_counter() - t0
+        wino_calls = [0]
+        wino_conv = rglru._depthwise_wino_conv
+
+        def counted(*a, **k):
+            wino_calls[0] += 1
+            return wino_conv(*a, **k)
+        rglru._depthwise_wino_conv = counted
+        _build.reset_launches()
+        losses, norms, ms = [], [], []
+        moved_bad, swallowed, n_checked = [], [], 0
+        try:
+            for i in range(LM_TRAIN_STEPS):
+                batch = batch_at(cfg, LM_TRAIN_SEQ, LM_TRAIN_BATCH, i, run.seed,
+                                 device=dev)
+                if i == 1:
+                    before = [t.clone() for t in ps]
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                params, opt, met = setup.step_fn(params, opt, batch, i)
+                e1.record()
+                losses.append(met["loss"])
+                norms.append(met["grad_norm"])
+                if i == 1:
+                    # the first step with lr > 0: every leaf whose second
+                    # moment is nonzero (a nonzero gradient so far) moved,
+                    # or else AdamW's fp32 update from this step's moments
+                    # is nonzero and rounds back to every bf16 value
+                    # (updates far below lr after clipping, next to eps)
+                    lr = setup.lr_fn(i)
+                    for t, b, m, v in zip(ps, before, tree_leaves(opt["m"]),
+                                          tree_leaves(opt["v"])):
+                        if not bool((v != 0).any()):
+                            continue
+                        n_checked += 1
+                        if not torch.equal(t, b):
+                            continue
+                        c = i + 1
+                        upd = (m / (1 - run.adam_b1 ** c)) / (torch.sqrt(
+                            v / (1 - run.adam_b2 ** c)) + 1e-8) + \
+                            run.weight_decay * b.float()
+                        if torch.equal((b.float() - lr * upd).to(b.dtype),
+                                       b) and bool((upd != 0).any()):
+                            swallowed.append((tuple(t.shape),
+                                              float(upd.abs().max())))
+                        else:
+                            moved_bad.append(tuple(t.shape))
+                    del before
+                    torch.cuda.reset_peak_memory_stats(dev)
+                torch.cuda.synchronize(dev)
+                ms.append(e0.elapsed_time(e1))
+            peak = torch.cuda.max_memory_allocated(dev)
+            calls = wino_calls[0]
+            traced_step = traced(dev, lambda: setup.step_fn(
+                params, opt, batch_at(cfg, LM_TRAIN_SEQ, LM_TRAIN_BATCH,
+                                      LM_TRAIN_STEPS, run.seed, device=dev),
+                LM_TRAIN_STEPS), 1)
+        finally:
+            rglru._depthwise_wino_conv = wino_conv
+        launches = dict(_build.LAUNCHES)
+        losses = [float(v) for v in losses]
+        norms = [float(v) for v in norms]
+        med = statistics.median(ms[1:])
+        r = {"params": n_params, "depth": cfg.n_layers,
+             "moment_dtype": run.moment_dtype, "init_s": init_s,
+             "losses": losses, "grad_norms": norms, "step_ms": ms,
+             "step_ms_median": med,
+             "tokens_s": LM_TRAIN_BATCH * LM_TRAIN_SEQ / med * 1e3,
+             "peak_mem_bytes": peak, "trace": traced_step,
+             "launches": launches, "leaves_checked": n_checked,
+             "leaves_below_bf16": swallowed,
+             "winograd_convs": calls,
+             "wall_s": time.perf_counter() - t0}
+        rep["models"][arch] = r
+        log(f"train {arch}: {n_params / 1e9:.3f} B params, depth "
+            f"{cfg.n_layers}, B={LM_TRAIN_BATCH} S={LM_TRAIN_SEQ} microbatch "
+            f"{LM_TRAIN_MICRO}, {run.moment_dtype} moments: {med:.2f} ms a "
+            f"step (median of steps 2-{LM_TRAIN_STEPS}; all "
+            f"{[round(v, 2) for v in ms]}), {r['tokens_s']:.0f} tokens/s, "
+            f"peak {peak / 2**30:.2f} GiB (steps 3-{LM_TRAIN_STEPS}); losses "
+            f"{[round(v, 4) for v in losses]}, grad norms "
+            f"{[round(v, 3) for v in norms]}; traced step: device busy "
+            f"{traced_step['busy_ms']:.1f} of {traced_step['window_ms']:.1f} "
+            f"ms ({100 * traced_step['busy_share']:.1f} %), "
+            f"{traced_step['device_intervals']:.0f} device intervals, top "
+            + ", ".join(f"{k[:50]} {v:.1f}"
+                        for k, v in traced_step["top_ms"].items())
+            + f"; {n_checked - len(swallowed)} of {n_checked} leaves with "
+            f"a gradient moved in step 2, the others' updates below bf16 "
+            f"resolution {swallowed}; launches of K1-K5 {launches}"
+            + (f"; {calls} quantized Toom-Cook convs" if cfg.use_winograd_conv
+               else "") + f"; {r['wall_s']:.1f} s in all; {smi}")
+        if not all(math.isfinite(v) for v in losses + norms):
+            fail(f"train {arch}: losses {losses}, grad norms {norms}")
+        if moved_bad or not n_checked:
+            fail(f"train {arch}: {len(moved_bad)} of {n_checked} leaves with "
+                 f"a gradient did not move in the first step with lr > 0, "
+                 f"though their update does not round back: "
+                 f"{moved_bad[:5]}")
+        if any(launches.values()):
+            fail(f"train {arch}: kernels launched {launches}")
+        if cfg.use_winograd_conv and not calls:
+            fail(f"train {arch}: the quantized Toom-Cook conv did not run")
+        if arch == "llama3.2-1b":
+            # the full-width train state through save and restore
+            t1 = time.perf_counter()
+            state = {"0": params, "1": opt}
+            (ROOT / "build").mkdir(exist_ok=True)
+            with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+                save(d, LM_TRAIN_STEPS, state)
+                back, step = restore(d, state)
+            same = step == LM_TRAIN_STEPS and all(
+                a.dtype == b.dtype and torch.equal(a.cpu(), b)
+                for a, b in zip(tree_leaves(state), tree_leaves(back)))
+            dtypes = sorted({str(t.dtype) for t in tree_leaves(state)})
+            r["checkpoint"] = {"bit_for_bit": same, "dtypes": dtypes,
+                               "s": time.perf_counter() - t1}
+            log(f"train {arch}: train state ({dtypes}) through save and "
+                f"restore bit for bit: {same} "
+                f"({r['checkpoint']['s']:.1f} s)")
+            if not same:
+                fail(f"train {arch}: the restored train state differs")
+            del state, back
+        del params, opt, ps, setup, traced_step
+    free_card()
+
+    # 2. fp32, full width, depth 2 (the hybrid 3): microbatched == full.
+    # Two terms depend on which rows share a batch, in both packages: the
+    # fake-quant conv's dynamic per-tensor scales (the conv is off here,
+    # as in phase 9's gates) and the MoE's load-balancing loss, a product
+    # of batch means (zeroed here; its share is logged beside the gate).
+    from repro_torch.models import layers as lm_layers
+    moe = lm_layers.moe
+
+    def moe_without_aux(*a, **k):
+        out, aux = moe(*a, **k)
+        return out, aux * 0.0
+    t0 = time.perf_counter()
+    for arch, _ in LM_TRAIN_MODELS:
+        cfg0 = ARCHS[arch]
+        changes = dict(n_layers=3 if cfg0.family == "hybrid" else 2,
+                       param_dtype="float32", use_winograd_conv=False)
+        if cfg0.n_experts:
+            changes["capacity_factor"] = cfg0.n_experts / cfg0.top_k
+        cfg = dataclasses.replace(cfg0, **changes)
+        model = registry.get_model(cfg)
+        params = fan_in_scaled(steps.init_lm_params(cfg, 1, dev), model, cfg)
+        batch = batch_at(cfg, LM_TRAIN_GATE_SEQ, LM_TRAIN_BATCH, 2, device=dev)
+        run = build_run(cfg, seq_len=LM_TRAIN_GATE_SEQ)
+        full = steps._loss_with_microbatch(
+            model, cfg, dataclasses.replace(run, microbatch=None))
+        micro = steps._loss_with_microbatch(model, cfg, run)
+        aux_share = None
+        if cfg.n_experts:
+            aux_share = float(full(params, batch)[0]) - \
+                float(micro(params, batch)[0])
+            lm_layers.moe = moe_without_aux
+        try:
+            lf, gf = full(params, batch)
+            lm, gm = micro(params, batch)
+        finally:
+            lm_layers.moe = moe
+        worst, least = 0.0, math.inf
+        for a, b in zip(tree_leaves(gm), tree_leaves(gf)):
+            # relative to each leaf's largest value alone, so that an
+            # accumulator missing a microbatch (half of every gradient)
+            # fails on any leaf; a leaf of zeros must stay zeros
+            d = float((a - b).abs().max())
+            top = float(b.abs().max())
+            worst = max(worst, d / top if top else d)
+            least = min(least, top)
+            if d > LM_TRAIN_MICRO_TOL * top:
+                fail(f"train microbatch gate {arch}: a gradient leaf "
+                     f"{d:.3e} apart, past {LM_TRAIN_MICRO_TOL} of its "
+                     f"largest {top:.3e}")
+        dl = abs(float(lm) - float(lf))
+        if dl > 1e-4 * abs(float(lf)):
+            fail(f"train microbatch gate {arch}: loss {float(lm)} against "
+                 f"{float(lf)}")
+        rep["microbatch_gates"][arch] = {"depth": cfg.n_layers,
+                                         "worst_rel": worst, "loss": dl,
+                                         "least_leaf_max": least,
+                                         "loss_apart_with_aux": aux_share}
+        log(f"train microbatch gate {arch} (full width, depth "
+            f"{cfg.n_layers}, fp32, S={LM_TRAIN_GATE_SEQ}): 2 x 2 against the "
+            f"batch of {LM_TRAIN_BATCH}: loss {dl:.2e} apart, gradients at "
+            f"most {worst:.2e} of each leaf's largest (gate "
+            f"{LM_TRAIN_MICRO_TOL}; the smallest leaf's largest {least:.3e})"
+            + (f" (the MoE's aux loss zeroed; with it the losses are "
+               f"{aux_share:.3e} apart)" if aux_share is not None else ""))
+        del params, batch, gf, gm
+        free_card()
+    rep["microbatch_wall_s"] = time.perf_counter() - t0
+
+    # 3. card against CPU: one train step of each family's tiny variant
+    t0 = time.perf_counter()
+    tt = LM_TRAIN_TINY
+    for arch, _ in LM_TRAIN_MODELS:
+        changes = {}
+        if ARCHS[arch].use_winograd_conv:
+            changes["use_winograd_conv"] = False
+        if ARCHS[arch].n_experts:
+            changes["capacity_factor"] = ARCHS[arch].n_experts / \
+                ARCHS[arch].top_k
+        cfg = dataclasses.replace(tiny_variant(ARCHS[arch]), **changes)
+        model = registry.get_model(cfg)
+        p_cpu = fan_in_scaled(init_params(model.param_specs(cfg),
+                                          torch.Generator().manual_seed(3)),
+                              model, cfg)
+        p_dev = tree_map(lambda x: x.to(dev), p_cpu)
+        run = build_run(cfg, seq_len=tt["S"], global_batch=tt["B"],
+                        total_steps=10)
+        b_cpu = batch_at(cfg, tt["S"], tt["B"], 1)
+        b_dev = {k: v.to(dev) for k, v in b_cpu.items()}
+        grad_of = steps._loss_with_microbatch(model, cfg, run)
+        l_cpu, g_cpu = grad_of(p_cpu, b_cpu)
+        l_dev, g_dev = grad_of(p_dev, b_dev)
+        o_cpu = adamw_init(p_cpu)
+        o_dev = tree_map(lambda x: x.to(dev), o_cpu)
+        lr = steps.make_train_setup(run, "cpu").lr_fn(1)
+        steps.make_train_setup(run, "cpu").step_fn(p_cpu, o_cpu, b_cpu, 1)
+        steps.make_train_setup(run, dev).step_fn(p_dev, o_dev, b_dev, 1)
+        diffs = {}
+        tol = tt["tol"]
+
+        def close(what, got, want, where=None, floor=0.0):
+            if not got.is_cuda:
+                fail(f"train card-vs-CPU {arch} {what}: not on the card")
+            got, want = got.cpu().float(), want.float()
+            d = (got - want).abs()
+            bound = tol * (1 + float(want.abs().max())) if want.numel() \
+                else 0.0
+            inside = d <= bound if where is None else \
+                torch.where(where, d <= bound, d <= floor + bound)
+            diffs[what] = float(d.max()) if d.numel() else 0.0
+            if not bool(inside.all()):
+                fail(f"train card-vs-CPU {arch} {what}: {diffs[what]:.3e} "
+                     f"past {tol} of 1 + its largest")
+        close("loss", l_dev, l_cpu)
+        for k, (a, b) in enumerate(zip(tree_leaves(g_dev),
+                                       tree_leaves(g_cpu))):
+            close(f"grad {k}", a, b)
+        for k, (a, b, g) in enumerate(zip(tree_leaves(p_dev),
+                                          tree_leaves(p_cpu),
+                                          tree_leaves(g_cpu))):
+            # Adam's first step moves a parameter by ~lr whatever its
+            # gradient's size: rounding noise may flip its sign
+            above = g.abs() > 1e-3 * float(g.abs().max()) \
+                if g.numel() else None
+            close(f"param {k}", a, b, above, 2 * lr)
+        worst_at = max(diffs, key=diffs.get)
+        worst = diffs[worst_at]
+        rep["card_vs_cpu"][arch] = {"worst": worst, "worst_at": worst_at,
+                                    "tensors": len(diffs)}
+        log(f"train card-vs-CPU {cfg.name}: one train step, {len(diffs)} "
+            f"tensors (loss, gradients, updated parameters) within {tol}, "
+            f"worst {worst:.2e} ({worst_at})")
+        del p_cpu, p_dev, g_cpu, g_dev, o_cpu, o_dev
+
+    # the hybrid's quantized Toom-Cook conv: its VJP on the CPU run's
+    # conv inputs, card against CPU
+    cfg = tiny_variant(ARCHS["recurrentgemma-2b"])
+    model = registry.get_model(cfg)
+    p_cpu = fan_in_scaled(init_params(model.param_specs(cfg),
+                                      torch.Generator().manual_seed(3)),
+                          model, cfg)
+    seen = []
+    conv = rglru._conv1d
+
+    def record(p, x, c):
+        seen.append((p, x.detach()))
+        return conv(p, x, c)
+    rglru._conv1d = record
+    try:
+        with torch.no_grad():
+            model.forward(p_cpu, batch_at(cfg, tt["S"], tt["B"], 1,
+                                          mode="prefill"), cfg)
+    finally:
+        rglru._conv1d = conv
+    gen = torch.Generator().manual_seed(4)
+    flips = []
+    for i, (p, x) in enumerate(seen):
+        ct = torch.randn(x.shape, generator=gen)
+        grads = []
+        for where in ("cpu", dev):
+            tp = {k: v.detach().to(where).requires_grad_()
+                  for k, v in p.items() if k in ("conv_w", "conv_b")}
+            tx = x.to(where).requires_grad_()
+            y = rglru._conv1d(tp, tx, cfg)
+            grads.append(torch.autograd.grad(
+                y, (tp["conv_w"], tp["conv_b"], tx), ct.to(where)))
+        (w0, b0, x0), (w1, b1, x1) = grads
+        if not x1.is_cuda:
+            fail("train conv VJP: not on the card")
+        for what, a, b in (("dx", x1, x0), ("db", b1, b0)):
+            d = float((a.cpu() - b).abs().max())
+            if d > LM_TRAIN_TINY["tol"] * (1 + float(b.abs().max())):
+                fail(f"train conv VJP {i} {what}: {d:.3e} card vs CPU")
+        d = (w1.cpu() - w0).abs().amax(0)
+        off = d > LM_TRAIN_TINY["tol"] * (1 + w0.abs().amax(0))
+        flips.append(int(off.sum()))
+        if off.sum() > CONV_CHANNELS_OFF_SHARE * off.numel():
+            fail(f"train conv VJP {i} dw: {int(off.sum())} of {off.numel()} "
+                 f"channels off the fp32 tier")
+    rep["conv_vjp_channels_off"] = flips
+    log(f"train card-vs-CPU conv VJP: {len(seen)} quantized Toom-Cook "
+        f"convs of the tiny hybrid on the CPU run's inputs, dx and db "
+        f"within 1e-4, dw channels off the fp32 tier {flips} of "
+        f"{cfg.d_rnn} each")
+    if not seen:
+        fail("train conv VJP: no conv ran")
+    rep["card_vs_cpu_wall_s"] = time.perf_counter() - t0
+    mm.allow_tf32 = tf32
+    return rep
 
 def main() -> int:
     import numpy as np
@@ -1572,7 +2118,8 @@ def main() -> int:
 
     # 4. main path ----------------------------------------------------------
     _build.reset_launches()
-    with tempfile.TemporaryDirectory() as ckpt:
+    with tempfile.TemporaryDirectory() as ckpt, \
+            recording_scales() as scale_calls:
         out = infer_resnet.main(["--width", "1.0", "--batch", str(BATCH),
                                  "--calib-steps", "2", "--ckpt-dir", ckpt,
                                  "--device", "cuda"])
@@ -1618,6 +2165,9 @@ def main() -> int:
     log("q8_linear rel error vs fp32 x @ w: " + ", ".join(
         f"{k} {v:.4f}" for k, v in report["q8_linear_rel"].items()))
     del xs, ws, ys, gen
+
+    report["scale_check"] = scale_check(scale_calls)
+    del scale_calls
 
     # 5. times --------------------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -2084,6 +2634,16 @@ def main() -> int:
     log(f"phase 9 (LM serving) {report['lm']['wall_s']:.1f}s; launches of "
         f"the five kernels (none lies on the LM path): "
         f"{report['lm']['launches']}")
+
+    # 10. train -------------------------------------------------------------
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    report["train_lm"] = train_phase(dev, smi)
+    report["train_lm"]["wall_s"] = time.perf_counter() - t0
+    report["train_lm"]["launches"] = dict(_build.LAUNCHES)
+    log(f"phase 10 (LM training) {report['train_lm']['wall_s']:.1f}s; "
+        f"launches of the five kernels (none lies on the LM path): "
+        f"{report['train_lm']['launches']}")
 
     kernels = []
     for k, (src, replaces) in TPU_KERNELS.items():

@@ -136,7 +136,8 @@ def restore(directory: str, tree_like: Any,
             if dtypes.get(key) == "bfloat16":
                 t = _bf16_tensor(arr)
             else:
-                t = torch.from_numpy(np.ascontiguousarray(arr))
+                # a copy keeps a 0-d leaf 0-d (ascontiguousarray makes it 1-d)
+                t = torch.from_numpy(arr.copy(order="C"))
             dtype = (like.dtype if isinstance(like, torch.Tensor)
                      else torch.from_numpy(np.asarray(like)).dtype)
             return t.to(dtype)

@@ -61,8 +61,9 @@ class ModelConfig:
     quantize_linears: bool = False    # w8a8 fake-quant on projections
     winograd: Optional[WinogradSpec] = None   # for conv layers (1-D here)
     use_winograd_conv: bool = False
-    # compile / memory (read by the JAX package's scan and remat; the
-    # port walks the layers in a Python loop and keeps no activations)
+    # memory: each layer (the hybrid: each group) under activation
+    # checkpointing in training; the port walks the layers in a Python
+    # loop, so scan_layers is read only by the JAX package
     remat: bool = True
     scan_layers: bool = True
 

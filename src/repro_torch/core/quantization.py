@@ -8,12 +8,13 @@ true-integer helpers.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence
 
 import torch
 
-__all__ = ["QuantConfig", "qmax", "storage_dtype", "abs_max_scale",
-           "fake_quant", "quantize_int", "dequantize_int"]
+__all__ = ["QuantConfig", "qmax", "storage_dtype", "divide",
+           "abs_max_scale", "fake_quant", "quantize_int", "dequantize_int"]
 
 
 def qmax(bits: int) -> int:
@@ -70,6 +71,26 @@ class QuantConfig:
                                        self.matrix_bits))
 
 
+def divide(x: torch.Tensor, q: float) -> torch.Tensor:
+    """``x / q`` rounded once, as the CPU and eager JAX compute it, on any
+    device. The divisor is a tensor on ``x``'s device: CUDA divides by a
+    host number through its reciprocal, x · (1/q), at times an ulp off
+    the quotient (the rewrite XLA's algsimp makes). Every scale of the
+    port (``abs_max_scale`` and the int8 serving scales of
+    ``kernels.ops``) divides here."""
+    return x / _divisor(float(q), x.dtype, x.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _divisor(q: float, dtype: torch.dtype, device: torch.device
+             ) -> torch.Tensor:
+    """``q`` as a 0-d tensor, made once per (q, dtype, device): a
+    division then launches no fill of its divisor. Made outside
+    inference mode, so autograd may save it for backward."""
+    with torch.inference_mode(False):
+        return torch.full((), q, dtype=dtype, device=device)
+
+
 def abs_max_scale(x: torch.Tensor, bits: int,
                   axis: Optional[Sequence[int]] = None,
                   eps: float = 1e-12) -> torch.Tensor:
@@ -81,10 +102,7 @@ def abs_max_scale(x: torch.Tensor, bits: int,
         amax = x.abs().amax()
     else:
         amax = x.abs().amax(dim=tuple(axis), keepdim=True)
-    # A tensor divisor: CUDA divides by a host number through its
-    # reciprocal, amax · (1/qmax), at times an ulp off the quotient (the
-    # rewrite XLA's algsimp makes); the CPU divides.
-    return torch.clamp_min(amax, eps) / amax.new_full((), qmax(bits))
+    return divide(torch.clamp_min(amax, eps), qmax(bits))
 
 
 class _FakeQuant(torch.autograd.Function):

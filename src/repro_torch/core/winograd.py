@@ -125,6 +125,20 @@ def _sandwich(M: torch.Tensor, X: torch.Tensor,
     return torch.einsum("ij,...jk,lk->...il", M, X, N)
 
 
+def _ordered_sandwich(M: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """M·X·Mᵀ over the trailing two dims of X, each sum taken term by
+    term in index order (one rounding a product, one a sum): the same
+    bits on every device, where an einsum sums in its library's order
+    (cuBLAS's differs from the CPU's)."""
+    T = X[..., None, 0, :] * M[:, 0, None]                # (..., a, b)
+    for k in range(1, M.shape[1]):
+        T = T + X[..., None, k, :] * M[:, k, None]
+    U = T[..., :, None, 0] * M[:, 0]                      # (..., a, a)
+    for k in range(1, M.shape[1]):
+        U = U + T[..., :, None, k] * M[:, k]
+    return U
+
+
 def _q(x: torch.Tensor, bits: Optional[int], axis=None) -> torch.Tensor:
     return fake_quant(x, bits, axis=axis)
 
@@ -176,16 +190,20 @@ def transform_weights_2d(w: torch.Tensor, spec: WinogradSpec,
 
     Canonical: U = G W Gᵀ. Changed base: U₁ = G_C W G_Cᵀ (quantize),
     U = C⁻¹ U₁ C⁻ᵀ (quantize), the casts of Fig. 2; weights quantized
-    per output channel when configured."""
+    per output channel when configured. With quantization off the sums
+    run in one fixed order (``_ordered_sandwich``), so the int8 weight
+    packing (``kernels.ops.prepare_weights_int8``) gives the same bits on
+    the card as on the CPU."""
     q = spec.quant
+    sandwich = _ordered_sandwich if q.is_off else _sandwich
     wt = w.permute(2, 3, 0, 1)                      # (Cin, Cout, r, r)
     w_axis = (0, 2, 3) if q.per_channel_weights else None
     wt = _q(wt, q.weight_bits, axis=w_axis)
     Gm, _, _, back, _ = _resolve(mats, flex, spec, w)
-    U = _sandwich(Gm, wt)                           # G_C W G_Cᵀ (or G W Gᵀ)
+    U = sandwich(Gm, wt)                            # G_C W G_Cᵀ (or G W Gᵀ)
     if spec.changes_base:
         U = _q_mid(U, q)
-        U = _sandwich(back, U)                      # C⁻¹ (·) C⁻ᵀ
+        U = sandwich(back, U)                       # C⁻¹ (·) C⁻ᵀ
     return _q_dom(U, q.trans_bits, q)
 
 

@@ -30,6 +30,7 @@ plain torch, as they were XLA glue outside Pallas in the JAX package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 from typing import Optional
 
@@ -37,7 +38,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.quantization import QuantConfig, qmax, quantize_int
+from repro_torch.core.quantization import (QuantConfig, divide, qmax,
+                                          quantize_int)
 from repro_torch.core.winograd import (WinogradSpec, _extract_tiles_1d_axis,
                                        _pad_amounts, make_matrices,
                                        transform_weights_2d)
@@ -93,7 +95,8 @@ def _reassemble(y: torch.Tensor, geom, m: int) -> torch.Tensor:
 def _hadamard_rq(h_amax: torch.Tensor, hadamard_bits: int) -> torch.Tensor:
     """Calibrated Hadamard requant scales: (n²,)|(n²,1) abs-max → (n²,1).
     The one scale formula of the 8/9-bit requant stage."""
-    return torch.clamp_min(h_amax.reshape(-1, 1), 1e-12) / qmax(hadamard_bits)
+    return divide(torch.clamp_min(h_amax.reshape(-1, 1), 1e-12),
+                  qmax(hadamard_bits))
 
 
 def prepare_weights_int8(w: torch.Tensor, spec: WinogradSpec
@@ -104,16 +107,22 @@ def prepare_weights_int8(w: torch.Tensor, spec: WinogradSpec
     quantization. Returns ``(u_q, w_scales)``: ``u_q`` (P, Cin, Cout)
     int8 and ``w_scales`` (P, 1) fp32.
     """
-    mats = make_matrices(spec)
-    P = spec.n * spec.n
-    fp_spec = WinogradSpec(m=spec.m, r=spec.r, base=spec.base,
-                           quant=QuantConfig.off())
-    U = transform_weights_2d(w.to(torch.float32), fp_spec, mats)
-    u_src = U.reshape(*U.shape[:2], P).movedim(-1, 0)          # (P,Cin,Cout)
-    s_w = u_src.abs().amax(dim=(1, 2), keepdim=True) / 127.0
+    u_src = _transformed_weights(w, spec)                     # (P,Cin,Cout)
+    s_w = divide(u_src.abs().amax(dim=(1, 2), keepdim=True), 127.0)
     s_w = torch.clamp_min(s_w, 1e-12)
     u_q = torch.clamp(torch.round(u_src / s_w), -127, 127).to(torch.int8)
-    return u_q.contiguous(), s_w.reshape(P, 1)
+    return u_q.contiguous(), s_w.reshape(-1, 1)
+
+
+def _transformed_weights(w: torch.Tensor, spec: WinogradSpec
+                         ) -> torch.Tensor:
+    """(r,r,Cin,Cout) → the exact fp Winograd-domain weights
+    (P, Cin, Cout): ``transform_weights_2d`` with quantization off."""
+    U = transform_weights_2d(
+        w.to(torch.float32),
+        dataclasses.replace(spec, quant=QuantConfig.off()),
+        make_matrices(spec))                              # (Cin,Cout,n,n)
+    return U.reshape(*U.shape[:2], spec.n * spec.n).movedim(-1, 0)
 
 
 def _tiles_abs_max(tiles: torch.Tensor, spec: WinogradSpec) -> torch.Tensor:
@@ -137,7 +146,7 @@ def input_abs_max(x: torch.Tensor, spec: WinogradSpec,
 
 def scales_from_abs_max(amax: torch.Tensor) -> torch.Tensor:
     """(n²,) abs-max → (n², 1) symmetric int8 scales."""
-    return torch.clamp_min(amax, 1e-12).reshape(-1, 1) / 127.0
+    return divide(torch.clamp_min(amax, 1e-12).reshape(-1, 1), 127.0)
 
 
 def quantize_input(tiles: torch.Tensor, in_scales: torch.Tensor, *,
@@ -266,7 +275,7 @@ def _requant(hf: torch.Tensor, amax: torch.Tensor, bits: int):
     The single-device and the sharded executors both requant here, so
     their formulas and order are one."""
     qm = qmax(bits)
-    s_h = torch.clamp_min(amax, 1e-12) / qm
+    s_h = divide(torch.clamp_min(amax, 1e-12), qm)
     Hq = torch.clamp(torch.round(hf / s_h), -qm, qm).to(torch.int32)
     return Hq, s_h[:, :, 0]
 

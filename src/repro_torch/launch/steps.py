@@ -1,12 +1,15 @@
-"""LM serving steps on one device (the serving half of
-``repro.launch.steps``): the prefill and decode step functions, and the
-one loop that runs prefill → grow the cache → greedy decode, which the
-example and ``chip_smoke.py`` both call.
+"""LM steps on one device (the port's counterpart of
+``repro.launch.steps``): the train step with microbatched gradient
+accumulation and its initial state; the prefill and decode step
+functions, and the one loop that runs prefill → grow the cache → greedy
+decode, which the example and ``chip_smoke.py`` both call.
 
 The JAX steps are jitted with parameter, batch and cache shardings and
-the decode step donates its cache; here the steps run eagerly under
-``torch.inference_mode`` on one device and the decode step writes the
-cache in place. LM sharding is a later slice.
+donate their state; here the steps run eagerly on one device. The train
+step writes the new parameters and moments into the tensors it was given
+(JAX donates them), and the decode step writes the cache in place; the
+serving steps run under ``torch.inference_mode``. LM sharding is a later
+slice.
 """
 from __future__ import annotations
 
@@ -17,26 +20,127 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
-from repro_torch.models.param import init_params, tree_map
+from repro_torch.models.param import init_params, tree_leaves, tree_map
+from repro_torch.optim.optimizer import (adamw_init, adamw_update_,
+                                         cosine_schedule)
 
-__all__ = ["make_serve_setup", "init_lm_params", "grow_cache", "generate"]
-
-
-def _leaves(tree) -> list:
-    out: list = []
-    tree_map(out.append, tree)
-    return out
+__all__ = ["TrainSetup", "make_train_setup", "init_train_state",
+           "make_serve_setup", "init_lm_params", "grow_cache", "generate"]
 
 
 def _check_on(dev: torch.device, what: str, tree) -> None:
     """Raise unless every tensor of ``tree`` lies on ``dev``: a step built
     for one device does not run on another."""
-    for t in _leaves(tree):
+    for t in tree_leaves(tree):
         if t.device.type != dev.type or (
                 dev.index is not None and t.device.index != dev.index):
             raise ValueError(f"{what} on {t.device}; this step runs on "
                              f"{dev}")
 
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+class TrainSetup:
+    """The train step of a run on one device: ``step_fn(params,
+    opt_state, batch, step) → (params, opt_state, metrics)`` with
+    metrics ``loss`` and ``grad_norm`` (0-d fp32 tensors on the device);
+    ``lr_fn`` is the run's schedule."""
+
+    def __init__(self, step_fn: Callable, lr_fn: Callable):
+        self.step_fn = step_fn
+        self.lr_fn = lr_fn
+
+
+def _value_and_grad(model, cfg, params: dict, batch: dict):
+    """The loss and the gradient of every parameter leaf (a tree like
+    ``params``, each leaf in its parameter's dtype; zeros for a leaf the
+    loss does not reach). Autograd runs on detached aliases of the
+    leaves, so ``params`` need not require gradients and may be written
+    in place once this returns."""
+    alias = tree_map(lambda t: t.detach().requires_grad_(), params)
+    with torch.enable_grad():
+        loss = model.loss_fn(alias, batch, cfg)
+        grads = iter(torch.autograd.grad(loss, tree_leaves(alias),
+                                         allow_unused=True))
+
+    def grad_of(t):                     # tree_map visits tree_leaves' order
+        g = next(grads)
+        return torch.zeros_like(t) if g is None else g
+    return loss.detach(), tree_map(grad_of, params)
+
+
+def _loss_with_microbatch(model, cfg, run) -> Callable:
+    """``(params, batch) → (loss, grads)``; with ``run.microbatch`` below
+    the global batch, accumulated over its microbatches in order as the
+    JAX scan does: ``loss / n_micro`` and ``g / n_micro`` (in the
+    gradient's dtype) added to fp32 zeros."""
+    def plain(params, batch):
+        return _value_and_grad(model, cfg, params, batch)
+
+    if not run.microbatch or run.microbatch >= run.global_batch:
+        return plain
+    mb = run.microbatch
+    if run.global_batch % mb:
+        raise ValueError(f"global batch {run.global_batch} is not a "
+                         f"multiple of the microbatch {mb}")
+    n_micro = run.global_batch // mb
+
+    def accum(params, batch):
+        loss_acc = torch.zeros((), dtype=torch.float32,
+                               device=tree_leaves(params)[0].device)
+        g_acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                               device=p.device), params)
+        for i in range(n_micro):
+            micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            loss, g = plain(params, micro)
+            loss_acc = loss_acc + loss / n_micro
+            for a, b in zip(tree_leaves(g_acc), tree_leaves(g)):
+                a.add_(b / n_micro)
+            del g
+        return loss_acc, g_acc
+    return accum
+
+
+def make_train_setup(run, device=None) -> TrainSetup:
+    """The train step of ``run`` on ``device`` (resolved: a request for
+    the card without one raises): microbatched loss and gradients, then
+    AdamW on the cosine schedule (``run``'s lr, warm-up, total steps,
+    betas, weight decay and clip), written into ``params`` and
+    ``opt_state``. The step raises unless its parameters, optimizer state
+    and batch lie on that device."""
+    cfg = run.model
+    model = registry.get_model(cfg)
+    dev = resolve_device(device)
+    lr_fn = cosine_schedule(run.lr, run.warmup_steps, run.total_steps)
+    loss_grad = _loss_with_microbatch(model, cfg, run)
+
+    def train_step(params, opt_state, batch, step: int):
+        _check_on(dev, "train state", {"params": params, "opt": opt_state})
+        _check_on(dev, "batch", batch)
+        loss, grads = loss_grad(params, batch)
+        metrics = adamw_update_(grads, opt_state, params,
+                                lr=lr_fn(int(step)), b1=run.adam_b1,
+                                b2=run.adam_b2,
+                                weight_decay=run.weight_decay,
+                                grad_clip=run.grad_clip)
+        metrics["loss"] = loss
+        return params, opt_state, metrics
+    return TrainSetup(train_step, lr_fn)
+
+
+def init_train_state(run, seed: int = 0, device=None) -> tuple:
+    """(params, opt_state) of ``run``: random weights drawn on ``device``
+    (default: the card) from ``seed``, as ``init_lm_params``, and zero
+    moments of ``run.moment_dtype``."""
+    params = init_lm_params(run.model, seed, device)
+    return params, adamw_init(params, getattr(torch, run.moment_dtype))
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
 
 def make_serve_setup(run, mode: str, device=None) -> Callable:
     """mode ∈ {"prefill", "decode"} → the step on ``device`` (resolved:

@@ -29,7 +29,7 @@ from repro_torch.data.pipeline import cifar_batch_at
 from repro_torch.device import resolve_device
 from repro_torch.models import resnet as RN
 from repro_torch.models.param import init_params, param_count
-from repro_torch.optim.optimizer import adamw_init, adamw_update
+from repro_torch.optim.optimizer import adamw_init, adamw_update_
 
 __all__ = ["main"]
 
@@ -92,11 +92,8 @@ def _train(args, device: torch.device) -> dict:
         t0 = time.perf_counter()
         loss, _, acc = RN.loss_fn(model, batch)
         grads = torch.autograd.grad(loss, [params[k] for k in names])
-        new_p, opt, _ = adamw_update(dict(zip(names, grads)), opt, params,
-                                     lr=LR, weight_decay=WEIGHT_DECAY)
-        with torch.no_grad():
-            for k in names:
-                params[k].copy_(new_p[k])
+        adamw_update_(dict(zip(names, grads)), opt, params, lr=LR,
+                      weight_decay=WEIGHT_DECAY)
         if cuda:
             torch.cuda.synchronize(device)
         # the step ends in a device sync: the window times the work

@@ -36,11 +36,25 @@ def constrain_leading_dp(x: torch.Tensor, *trailing) -> torch.Tensor:
     return x
 
 
+class _GradCast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype)
+
+
 def grad_cast(x: torch.Tensor) -> torch.Tensor:
-    """Identity in forward, as JAX's. (Its backward casts the cotangent
-    to x's dtype on attention's q, k, v; serving takes no gradient, so
-    nothing here calls it; the LM training slice will.)"""
-    return x
+    """Identity whose backward casts the cotangent to x's dtype, as
+    JAX's: attention's fp32 score and value products then hand bf16
+    gradients back to the q, k, v projections. Without autograd (serving)
+    it returns ``x`` itself."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _GradCast.apply(x)
 
 
 # ---------------------------------------------------------------------------
@@ -171,6 +185,7 @@ def attention(params: dict, x: torch.Tensor, cfg, *, window=None,
     q = rope(q.reshape(B, S, H, dh), positions, cfg.rope_theta
              ).reshape(B, S, Hkv, G, dh)
     k = rope(k, positions, cfg.rope_theta)
+    q, k, v = grad_cast(q), grad_cast(k), grad_cast(v)
     o = _chunked_attn(q, k, v, causal=causal, window=window,
                       chunk=min(DEFAULT_CHUNK, S))
     out = linear(o.reshape(B, S, H * dh), params["wo"], q8=q8)

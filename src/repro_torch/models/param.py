@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 __all__ = ["ParamSpec", "init_params", "param_count", "params_from_jax",
-           "tree_map", "at_layer"]
+           "tree_paths", "tree_map", "tree_leaves", "unstack"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,12 +54,15 @@ def _materialize(spec: ParamSpec, gen: torch.Generator) -> torch.Tensor:
     return x.mul_(std).to(spec.dtype)
 
 
-def _leaves(specs, prefix=()):
-    if isinstance(specs, ParamSpec):
-        yield prefix, specs
-        return
-    for k in sorted(specs):
-        yield from _leaves(specs[k], prefix + (k,))
+def tree_paths(tree, prefix=()):
+    """(key path, leaf) of a tree of nested dicts (anything else is a
+    leaf), keys in sorted order: JAX's flattening order, and the one
+    order in which every tree walk of the port visits leaves."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_paths(tree[k], prefix + (k,))
+    else:
+        yield prefix, tree
 
 
 def init_params(specs: dict, gen: torch.Generator) -> dict:
@@ -67,7 +70,7 @@ def init_params(specs: dict, gen: torch.Generator) -> dict:
     (a ``torch.Generator("cuda")`` draws on the card), drawing leaf by
     leaf in sorted-key order."""
     out: dict = {}
-    for path, spec in _leaves(specs):
+    for path, spec in tree_paths(specs):
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
@@ -77,20 +80,29 @@ def init_params(specs: dict, gen: torch.Generator) -> dict:
 
 def param_count(specs: dict) -> int:
     """Number of scalars a ParamSpec tree declares."""
-    return sum(math.prod(s.shape) for _, s in _leaves(specs))
+    return sum(math.prod(s.shape) for _, s in tree_paths(specs))
 
 
 def tree_map(fn, tree):
-    """``fn`` over the leaves of a tree of nested dicts."""
+    """``fn`` over the leaves of a tree of nested dicts, called in
+    ``tree_paths``' order."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
     return fn(tree)
 
 
-def at_layer(tree, i: int):
-    """Layer ``i`` of a tree whose leaves are stacked along a leading
-    ``layers`` axis (views, no copy)."""
-    return tree_map(lambda t: t[i], tree)
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of nested dicts, in ``tree_paths``' order."""
+    return [leaf for _, leaf in tree_paths(tree)]
+
+
+def unstack(tree) -> list:
+    """The layers of a tree whose leaves are stacked along a leading
+    ``layers`` axis, in order (views, no copy). One ``unbind`` a leaf, so
+    backward stacks a leaf's layer gradients in one pass."""
+    parts = tree_map(lambda t: t.unbind(0), tree)
+    n = len(tree_leaves(parts)[0])
+    return [tree_map(lambda ts: ts[i], parts) for i in range(n)]
 
 
 def _tensor_from_numpy(a) -> torch.Tensor:

@@ -17,8 +17,8 @@ _FAMILY_MODULES = {
 
 
 def get_model(cfg):
-    """The module implementing param_specs/forward/prefill/init_cache/
-    decode_step for this config's family."""
+    """The module implementing param_specs/forward/loss_fn/prefill/
+    init_cache/decode_step for this config's family."""
     try:
         return _FAMILY_MODULES[cfg.family]
     except KeyError:

@@ -1,5 +1,5 @@
 """RecurrentGemma / Griffin hybrid: RG-LRU recurrent blocks + local MQA
-(the port's counterpart of ``repro.models.rglru``, serving half).
+(the port's counterpart of ``repro.models.rglru``).
 
 Block pattern is (rec, rec, attn) repeating (the 1:2 ratio of the
 config). The temporal conv1d (width 4) inside every recurrent block is
@@ -11,22 +11,30 @@ The RG-LRU recurrence  h_t = a_t ⊙ h_{t-1} + √(1−a_t²) ⊙ (i_t ⊙ x_t)
 is a diagonal linear recurrence, scanned in log depth by
 ``_associative_scan``, which pairs the elements as
 ``jax.lax.associative_scan`` does. Decode keeps O(1) state per layer:
-(rnn state, conv tail, window-bounded ring-buffer KV).
+(rnn state, conv tail, window-bounded ring-buffer KV). Training:
+``loss_fn``, each (rec, rec, attn) group under activation checkpointing
+where ``cfg.remat`` (the remainder layers without, as in the JAX
+package); the conv's gradients pass its fake-quant casts by the
+saturating straight-through estimator, so the network trains
+Winograd-aware, the paper's method.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import winograd as W
-from repro_torch.core.quantization import fake_quant, qmax
+from repro_torch.core.quantization import divide, fake_quant, qmax
 from repro_torch.models import layers as L
-from repro_torch.models.param import ParamSpec, at_layer
+from repro_torch.models.losses import chunked_ce
+from repro_torch.models.param import ParamSpec, unstack
 from repro_torch.models.transformer import (_apply_norm, _attn_specs,
                                             _mlp_specs, _norm_spec)
 
 __all__ = ["param_specs", "layer_params", "hidden_forward", "forward",
-           "prefill", "init_cache", "decode_step", "split_pattern"]
+           "loss_fn", "prefill", "init_cache", "decode_step",
+           "split_pattern"]
 
 _RG_C = 8.0  # Griffin's recurrence sharpness constant
 
@@ -96,7 +104,9 @@ def layer_params(params, cfg) -> list:
     of the stacks), then the remainder; what a serving step slices once
     and passes as ``layers``."""
     pat, n_full, rem = split_pattern(cfg)
-    return [(at_layer(params["groups"][f"{i}_{kind}"], g), kind)
+    stacks = [unstack(params["groups"][f"{i}_{kind}"])
+              for i, kind in enumerate(pat)]
+    return [(stacks[i][g], kind)
             for g in range(n_full) for i, kind in enumerate(pat)] + \
         [(params["rem"][f"{i}_{kind}"], kind) for i, kind in enumerate(rem)]
 
@@ -133,8 +143,8 @@ def _depthwise_wino_weights(w, spec, mats):
         # ``_q_dom`` of one (1, 1, n) kernel: one scale, or with position
         # scales one a position, i.e. an element
         if q.position_scales and q.trans_bits is not None:
-            return fake_quant(U, q.trans_bits, scale=torch.clamp_min(
-                U.detach().abs(), 1e-12) / U.new_full((), qmax(q.trans_bits)))
+            return fake_quant(U, q.trans_bits, scale=divide(
+                torch.clamp_min(U.detach().abs(), 1e-12), qmax(q.trans_bits)))
         return fake_quant(U, q.trans_bits, axis=(1,))
     wt = w.transpose(0, 1)                               # (C, r)
     wt = fake_quant(wt, q.weight_bits, axis=(1,))
@@ -264,12 +274,26 @@ def _attn_block(p, x, cfg, positions):
     return x + L.mlp(p["mlp"], h, cfg)
 
 
+def _run_blocks(blocks, x, cfg, positions):
+    for p, kind in blocks:
+        x = (_attn_block(p, x, cfg, positions) if kind == "attn"
+             else _rec_block(p, x, cfg))
+    return x
+
+
 def hidden_forward(params, batch, cfg):
     x = params["embed"][batch["tokens"]].to(cfg.dtype)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for p, kind in layer_params(params, cfg):
-        x = (_attn_block(p, x, cfg, positions) if kind == "attn"
-             else _rec_block(p, x, cfg))
+    pat, n_full, _ = split_pattern(cfg)
+    blocks = layer_params(params, cfg)
+    k = len(pat)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for g in range(n_full):
+        group = blocks[g * k:(g + 1) * k]
+        x = (checkpoint(_run_blocks, group, x, cfg, positions,
+                        use_reentrant=False, preserve_rng_state=False)
+             if remat else _run_blocks(group, x, cfg, positions))
+    x = _run_blocks(blocks[n_full * k:], x, cfg, positions)
     return _apply_norm(params["ln_f"], x, cfg)
 
 
@@ -277,6 +301,11 @@ def forward(params, batch, cfg):
     x = hidden_forward(params, batch, cfg)
     logits = x @ params["embed"].T                      # tied embeddings
     return logits.float(), 0.0
+
+
+def loss_fn(params, batch, cfg):
+    x = hidden_forward(params, batch, cfg)
+    return chunked_ce(x, params["embed"].T, batch["labels"])
 
 
 def prefill(params, batch, cfg, layers=None):

@@ -1,5 +1,5 @@
 """RWKV-6 "Finch": attention-free LM with data-dependent per-channel decay
-(the port's counterpart of ``repro.models.rwkv6``, serving half).
+(the port's counterpart of ``repro.models.rwkv6``).
 
 Time mixing is a diagonal-decay matrix-state recurrence per head:
     S_t = diag(w_t) · S_{t-1} + k_tᵀ v_t
@@ -9,18 +9,21 @@ across chunks carrying S); decode is one O(1) state update.
 
 Data-dependent pieces follow the Finch paper: ddlerp token-shift mixing
 with low-rank adapters, and w_t from a LoRA on the shifted mix. Channel
-mix is the RWKV squared-ReLU MLP with token shift.
+mix is the RWKV squared-ReLU MLP with token shift. Training: ``loss_fn``,
+each layer under activation checkpointing where ``cfg.remat``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.param import ParamSpec, at_layer
+from repro_torch.models.losses import chunked_ce
+from repro_torch.models.param import ParamSpec, unstack
 from repro_torch.models.transformer import _apply_norm, _norm_spec
 
 __all__ = ["param_specs", "layer_params", "hidden_forward", "forward",
-           "prefill", "init_cache", "decode_step"]
+           "loss_fn", "prefill", "init_cache", "decode_step"]
 
 _LORA = 64        # low-rank adapter width for ddlerp / decay
 _CHUNK = 8        # time-mix chunk: with the decay clamp below, intra-chunk
@@ -204,17 +207,26 @@ def _layer(lp, h, cfg, S=None, tml=None, cml=None):
     return h + o, (S, tm_last, cm_last)
 
 
+def _layer_out(lp, h, cfg):
+    return _layer(lp, h, cfg)[0]
+
+
 def layer_params(params, cfg) -> list:
     """The stacked block parameters sliced layer by layer (views): what a
     serving step slices once and passes as ``layers``."""
-    return [at_layer(params["blocks"], i) for i in range(cfg.n_layers)]
+    return unstack(params["blocks"])
 
 
 def hidden_forward(params, batch, cfg, collect_state: bool = False,
                    layers=None):
     x = params["embed"][batch["tokens"]].to(cfg.dtype)
     states = []
+    remat = cfg.remat and not collect_state and torch.is_grad_enabled()
     for lp in layers or layer_params(params, cfg):
+        if remat:
+            x = checkpoint(_layer_out, lp, x, cfg, use_reentrant=False,
+                           preserve_rng_state=False)
+            continue
         x, st = _layer(lp, x, cfg)
         if collect_state:
             states.append(st)
@@ -227,6 +239,11 @@ def hidden_forward(params, batch, cfg, collect_state: bool = False,
 def forward(params, batch, cfg):
     x, _ = hidden_forward(params, batch, cfg)
     return (x @ params["unembed"]).float(), 0.0
+
+
+def loss_fn(params, batch, cfg):
+    x, _ = hidden_forward(params, batch, cfg)
+    return chunked_ce(x, params["unembed"], batch["labels"])
 
 
 def prefill(params, batch, cfg, layers=None):

@@ -1,6 +1,6 @@
 """Decoder/encoder transformer LM covering the dense, MoE, audio-encoder
 and VLM-backbone members of the assigned pool (the port's counterpart of
-``repro.models.transformer``, serving half).
+``repro.models.transformer``).
 
 Layer parameters are stacked along a leading "layers" axis, the JAX
 layout, and the stack is walked by a Python loop over that axis.
@@ -9,17 +9,22 @@ Supports GQA with optional QKV bias (qwen1.5), RoPE, blockwise
 attention; encoder (bidirectional) mode (hubert); MoE blocks (shared +
 routed experts; qwen2-moe, kimi-k2); stub modality frontends
 (precomputed frame/patch embeddings); the w8a8 fake-quant substrate via
-``cfg.quantize_linears``. ``loss_fn`` comes with the training slice.
+``cfg.quantize_linears``. Training: ``loss_fn`` (chunked CE, the
+encoder's frame targets, the MoE's load-balancing term), with each layer
+under activation checkpointing where ``cfg.remat`` (JAX's
+``jax.checkpoint`` of its scan body).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
-from repro_torch.models.param import ParamSpec, at_layer
+from repro_torch.models.losses import chunked_ce
+from repro_torch.models.param import ParamSpec, unstack
 
 __all__ = ["param_specs", "layer_params", "hidden_forward", "forward",
-           "prefill", "init_cache", "decode_step"]
+           "loss_fn", "prefill", "init_cache", "decode_step"]
 
 
 def _norm_spec(cfg, shape_prefix=()):
@@ -175,7 +180,7 @@ def layer_params(params: dict, cfg) -> list:
     """The stacked block parameters sliced layer by layer (views), in
     depth order: what a serving step slices once and passes as
     ``layers``."""
-    return [at_layer(params["blocks"], i) for i in range(cfg.n_layers)]
+    return unstack(params["blocks"])
 
 
 def hidden_forward(params: dict, batch: dict, cfg,
@@ -186,8 +191,14 @@ def hidden_forward(params: dict, batch: dict, cfg,
     x, positions = _embed_inputs(params, batch, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
+    remat = cfg.remat and not collect_kv and torch.is_grad_enabled()
     for lp in layers or layer_params(params, cfg):
-        x, a, kv = _block(cfg, lp, x, positions, collect_kv)
+        if remat:
+            x, a, kv = checkpoint(_block, cfg, lp, x, positions,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
+        else:
+            x, a, kv = _block(cfg, lp, x, positions, collect_kv)
         aux = aux + a
         if collect_kv:
             ks.append(kv[0])
@@ -211,6 +222,17 @@ def forward(params: dict, batch: dict, cfg):
     x, aux, _ = hidden_forward(params, batch, cfg)
     logits = x @ _unembed_matrix(params, cfg)
     return logits.float(), aux
+
+
+def loss_fn(params: dict, batch: dict, cfg) -> torch.Tensor:
+    """Next-token (decoder) or frame-target (encoder) chunked CE, on the
+    text positions of a VLM batch; plus 0.01 × the MoE's aux loss."""
+    x, aux, _ = hidden_forward(params, batch, cfg)
+    labels = batch["labels"]
+    if cfg.input_mode == "patches+tokens":
+        x = x[:, -labels.shape[1]:, :]            # loss on text positions
+    nll = chunked_ce(x, _unembed_matrix(params, cfg), labels)
+    return nll + 0.01 * aux
 
 
 def prefill(params: dict, batch: dict, cfg, layers=None):

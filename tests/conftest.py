@@ -76,6 +76,7 @@ GROUPED_MODULES = (
     "tests/test_torch_conv1d.py",
     "tests/test_torch_lm.py",
     "tests/test_torch_lm_layers.py",
+    "tests/test_torch_lm_train.py",
     "tests/test_torch_q8.py",
     "tests/test_torch_resnet.py",
     "tests/test_torch_train.py",

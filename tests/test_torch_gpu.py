@@ -649,3 +649,54 @@ def test_sharded_serving_is_bitwise_single_device_on_card(x_shape, cout,
             assert _build.LAUNCHES["output_transform"] == dd * dm
             assert torch.equal(_bits(yd), _bits(ref_dyn)), \
                 ("dynamic", m, base, bits, dd, dm)
+
+
+def test_int8_serving_scales_on_card_equal_the_cpu():
+    """The four scale functions of ``kernels/ops.py`` on the card bit for
+    bit with the CPU (the weight packing on any weights: its transform
+    sums in a fixed order), on inputs where fp32 ``a · (1/q)`` is not
+    ``a / q``
+    (``tests/test_torch_scales.py``: abs-maxima for q = 127 and 255,
+    integer weights whose exact transform has such abs-maxima), with the
+    8- and 9-bit Hadamard grids. A division by a host number on the card
+    would take the reciprocal form and differ."""
+    from test_torch_scales import reciprocal_differs, scale_inputs
+    dev = _card()
+    inp = scale_inputs()
+    a = torch.from_numpy(inp["amax"])
+    ad = a.to(dev)
+    assert torch.equal(_bits(ops.scales_from_abs_max(ad)),
+                       _bits(ops.scales_from_abs_max(a)))
+    for bits in (8, 9):
+        assert torch.equal(_bits(ops._hadamard_rq(ad, bits)),
+                           _bits(ops._hadamard_rq(a, bits))), bits
+        _, s_card = ops._requant(torch.zeros((36, 2, 3), device=dev),
+                                 ad.reshape(-1, 1, 1), bits)
+        _, s_cpu = ops._requant(torch.zeros((36, 2, 3)),
+                                a.reshape(-1, 1, 1), bits)
+        assert torch.equal(_bits(s_card), _bits(s_cpu)), bits
+    # the reciprocal form on the card differs on these inputs
+    assert not torch.equal(_bits(ad / 127.0), _bits(a / 127.0))
+    w = torch.from_numpy(inp["w"])
+    u_card = ops._transformed_weights(w.to(dev), inp["spec"])
+    u_cpu = ops._transformed_weights(w, inp["spec"])
+    assert torch.equal(_bits(u_card), _bits(u_cpu))      # exact on both
+    assert reciprocal_differs(
+        u_cpu.abs().amax(dim=(1, 2)).numpy(), 127).any()
+    uq_card, sw_card = ops.prepare_weights_int8(w.to(dev), inp["spec"])
+    uq_cpu, sw_cpu = ops.prepare_weights_int8(w, inp["spec"])
+    assert torch.equal(_bits(sw_card), _bits(sw_cpu))
+    assert torch.equal(uq_card.cpu(), uq_cpu)
+    # any weights: the fixed-order transform packs the same bits
+    rng = np.random.default_rng(1)
+    for m, base, _ in CASES[::3]:
+        spec = WinogradSpec(m=m, r=3, base=base)
+        w = torch.from_numpy(rng.normal(size=(3, 3, 19, 45))
+                             .astype(np.float32))
+        u_card = ops._transformed_weights(w.to(dev), spec)
+        assert torch.equal(_bits(u_card),
+                           _bits(ops._transformed_weights(w, spec)))
+        uq_card, sw_card = ops.prepare_weights_int8(w.to(dev), spec)
+        uq_cpu, sw_cpu = ops.prepare_weights_int8(w, spec)
+        assert torch.equal(_bits(sw_card), _bits(sw_cpu)), (m, base)
+        assert torch.equal(uq_card.cpu(), uq_cpu), (m, base)
