@@ -175,7 +175,41 @@ fails the run:
               run's conv inputs held as tests/test_torch_lm_train.py
               holds it; llama3.2-1b's full-width train state (bf16
               parameters, fp32 moments, count) through ``save`` and
-              ``restore`` bit for bit.
+              ``restore`` bit for bit;
+11. sharded — the LM over data × model meshes of logical devices laid
+              over the one card (``launch.mesh.make_mesh_for(...,
+              host_devices=)``): llama3.2-1b at full width and depth,
+              bf16, fp32 moments, 3 train steps of B = 4 × 2,048,
+              microbatch 2 (phase 10's run) on one device, a 1 × 1 mesh
+              and ``make_mesh_for(4, model_parallel=2)``'s 2 × 2: ms a
+              step, tokens/s, peak memory, one traced step's busy share
+              and its copy/cast and cat kernels' share of device time,
+              and what the split adds to them over one device; the
+              1 × 1 mesh bit for bit with one device (loss, grad norm,
+              every parameter and moment); the 2 × 2 train state saved
+              and restored onto the 1 × 1 mesh bit for bit;
+              ``compressed_grad_mean`` over the (2, 2, 2) pod × data ×
+              model mesh's pod axis on llama3.2-1b's gradients, card bit
+              for bit with the CPU; bf16 serving on the 2 × 2 mesh
+              (prefill 2,048, 16 greedy steps) beside one device, and
+              again with its row-parallel partials summed in fp32: token
+              agreement, and at each sequence's first step apart the
+              logit gap beside one device's top-2 margin, logged; at
+              full width, depth 2 (the hybrid 3),
+              fp32, weights scaled to input width, no MoE token dropped,
+              the hybrid's conv and the MoE's aux loss on, one train step
+              of each of the six families on 2 × 2 and qwen2-moe-a2.7b's
+              on (2, 2, 2) with FSDP and moe_groups 4 within 1e-4 × (1 +
+              each tensor's largest) of one device (loss, grad norm,
+              parameters where the gradient is above 1e-3 of its
+              leaf's largest, else 2 lr), each beside how far one ulp of
+              the weights moves the one-device loss and grad norm (the
+              hybrid's parameters at ``LM_SHARD_CONV_ULPS`` times the
+              one-ulp share, a planted per-row-scale conv refused, and
+              its first conv's input on 2 × 2 against one device); the
+              fp32 prefill and one decode step (hubert: forward) on 2 × 2
+              within phase 9's tolerance of one device; K1–K5 launch 0
+              times. Every phase's wall seconds are logged at the end.
 
 Phase 5's device-busy share is the union of the trace's device intervals
 over the traced window, so it cannot pass 100 %.
@@ -315,6 +349,23 @@ LM_TRAIN_TINY = dict(B=4, S=24, tol=1e-4)
 # the fp32 tier (an abs-max STE mask flipped by an ulp of the transformed
 # weights; tests/test_torch_lm_train.py, CONV_CHANNELS_OFF)
 CONV_CHANNELS_OFF_SHARE = 6 / 64
+# Sharded LM (phase 11): the model trained at full width and depth on the
+# 2 x 2 and 1 x 1 meshes and served on the 2 x 2, its steps (B, positions
+# and microbatch of phase 10) and decode steps; the fp32 gates'
+# positions and tier (of 1 + each tensor's largest |value|).
+LM_SHARD_ARCH = "llama3.2-1b"
+LM_SHARD_STEPS = 3
+LM_SHARD_DECODE = 16
+LM_SHARD_GATE_SEQ = 512
+LM_SHARD_TOL = 1e-4
+# With the hybrid's quantized conv on, the share of held parameters past
+# the tier may reach this multiple of the share that one ulp of every
+# weight puts past it on one device. The phase reads both ends in every
+# run: the sound 2 x 2 step and a planted batch-global fault, the conv
+# with its scales taken per row, which the gate must refuse. On an NVIDIA
+# H100 80GB HBM3 at 700 W: 6.05 % past (4.3x one ulp's 1.39 %) and, with
+# the fault, 32.7 % (23.5x); 8x lies between them (PERF.md, PR 20).
+LM_SHARD_CONV_ULPS = 8
 
 
 def fail(msg: str) -> None:
@@ -955,10 +1006,10 @@ def fan_in_scaled(params, model, cfg):
     return params
 
 
-def traced(dev, fn, per: int) -> dict:
+def traced(dev, fn, per: int, keep_all: bool = False) -> dict:
     """``fn()`` under the profiler: the device's busy share of the
     window, the count of device intervals and the top kernels, per
-    ``per``."""
+    ``per`` (with ``keep_all``, every kernel's time too)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -974,12 +1025,15 @@ def traced(dev, fn, per: int) -> dict:
     busy, _ = device_busy(prof)
     window = e0.elapsed_time(e1)      # the events' window, not the trace's
     n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
-    top = sorted(device_ms_by_kernel(prof, per).items(),
-                 key=lambda kv: -kv[1])[:5]
-    return {"busy_ms": busy / per, "window_ms": window / per,
-            "busy_share": busy / window if window else 0.0,
-            "device_intervals": n / per, "top_ms": dict(top),
-            "read_s": time.perf_counter() - t1}
+    by_kernel = device_ms_by_kernel(prof, per)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
+    out = {"busy_ms": busy / per, "window_ms": window / per,
+           "busy_share": busy / window if window else 0.0,
+           "device_intervals": n / per, "top_ms": dict(top),
+           "read_s": time.perf_counter() - t1}
+    if keep_all:
+        out["all_ms"] = by_kernel
+    return out
 
 
 def lm_phase(dev, smi: str) -> dict:
@@ -1760,6 +1814,585 @@ def train_phase(dev, smi: str) -> dict:
     mm.allow_tf32 = tf32
     return rep
 
+def copy_and_gather_ms(all_ms: dict) -> dict:
+    """Of a traced step's device time by kernel: the copy and cast
+    kernels (``.to`` between dtypes, ``contiguous``; a ``.to`` between
+    logical devices of one card launches none) and the gathers
+    (``torch.cat``'s kernels) in ms."""
+    copies = sum(v for k, v in all_ms.items()
+                 if ("copy" in k.lower() and "cat" not in k.lower()) or
+                 "Memcpy" in k)
+    gathers = sum(v for k, v in all_ms.items()
+                  if "CatArray" in k or "cat_" in k.lower())
+    return {"copies_ms": copies, "gathers_ms": gathers,
+            "total_ms": sum(all_ms.values())}
+
+
+def lm_shard_phase(dev, smi: str) -> dict:
+    """Phase 11 (see the module docstring). Returns its report."""
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch.checkpoint.checkpoint import restore, save
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.distributed import compression, sharding as shd
+    from repro_torch.distributed.sharding import gather_tree, place_tree
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import registry, rglru
+    from repro_torch.models.param import tree_leaves, tree_map
+    from repro_torch.optim.optimizer import adamw_init
+
+    rep: dict = {"llama": {}, "train_gates": {}, "serve_gates": {}}
+    mm = torch.backends.cuda.matmul
+    tf32 = mm.allow_tf32
+    mm.allow_tf32 = False
+    mesh22 = make_mesh_for(4, 2, device=dev, host_devices=4)
+    mesh11 = make_mesh_for(1, 1, device=dev)
+    pod = make_mesh_for(8, 2, 4, device=dev, host_devices=8)
+    if tuple(mesh22.shape.values()) != (2, 2) or \
+            tuple(pod.shape.values()) != (2, 2, 2):
+        fail(f"sharded LM meshes {mesh22.shape}, {pod.shape}")
+
+    def build_run(cfg, **kw):
+        base = dict(model=cfg, seq_len=LM_TRAIN_SEQ,
+                    global_batch=LM_TRAIN_BATCH, microbatch=LM_TRAIN_MICRO,
+                    lr=3e-4, total_steps=LM_SHARD_STEPS,
+                    warmup_steps=max(1, LM_SHARD_STEPS // 10))
+        return RunConfig(**{**base, **kw})
+
+    def same(a, b) -> bool:
+        a, b = (dict(enumerate(t)) if isinstance(t, list) else t
+                for t in (a, b))
+        la, lb = tree_leaves(a), tree_leaves(b)
+        return len(la) == len(lb) and all(
+            x.dtype == y.dtype and torch.equal(x, y.to(x.device))
+            for x, y in zip(la, lb))
+
+    # 1. llama3.2-1b at full width and depth, bf16: 3 steps one device,
+    # on a 1 x 1 mesh and on a 2 x 2 mesh
+    cfg = ARCHS[LM_SHARD_ARCH]
+    run = build_run(cfg)
+
+    def train(mesh):
+        kw = {} if mesh is None else {"mesh": mesh}
+        t0 = time.perf_counter()
+        held = torch.cuda.memory_allocated(dev)   # another run's state
+        params, opt = steps.init_train_state(run, 0, dev, **kw)
+        setup = steps.make_train_setup(run, dev, **kw)
+        torch.cuda.synchronize(dev)
+        init_s = time.perf_counter() - t0
+        ms, losses, norms = [], [], []
+        for i in range(LM_SHARD_STEPS):
+            batch = batch_at(cfg, LM_TRAIN_SEQ, LM_TRAIN_BATCH, i, run.seed,
+                             device=dev)
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats(dev)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            params, opt, met = setup.step_fn(params, opt, batch, i)
+            e1.record()
+            torch.cuda.synchronize(dev)
+            ms.append(e0.elapsed_time(e1))
+            losses.append(met["loss"])
+            norms.append(met["grad_norm"])
+        peak = torch.cuda.max_memory_allocated(dev) - held
+        med = statistics.median(ms[1:])
+        return {"params": params, "opt": opt, "setup": setup,
+                "losses": losses, "norms": norms,
+                "r": {"init_s": init_s, "step_ms": ms, "step_ms_median": med,
+                      "tokens_s": LM_TRAIN_BATCH * LM_TRAIN_SEQ / med * 1e3,
+                      "peak_mem_bytes": peak,
+                      "losses": [float(v) for v in losses],
+                      "grad_norms": [float(v) for v in norms]}}
+
+    def trace(out):
+        t = traced(dev, lambda: out["setup"].step_fn(
+            out["params"], out["opt"],
+            batch_at(cfg, LM_TRAIN_SEQ, LM_TRAIN_BATCH, LM_SHARD_STEPS,
+                     run.seed, device=dev), LM_SHARD_STEPS), 1, keep_all=True)
+        cg = copy_and_gather_ms(t.pop("all_ms"))
+        t.update(cg)
+        t["copies_share"] = cg["copies_ms"] / max(cg["total_ms"], 1e-9)
+        t["gathers_share"] = cg["gathers_ms"] / max(cg["total_ms"], 1e-9)
+        out["r"]["trace"] = t
+
+    t0 = time.perf_counter()
+    free_card()
+    one = train(None)
+    free_card()
+    m11 = train(mesh11)
+    gathered = gather_tree({"0": m11["params"], "1": m11["opt"]})
+    bits = (same(m11["losses"], one["losses"]) and
+            same(m11["norms"], one["norms"]) and
+            same(gathered, {"0": one["params"], "1": one["opt"]}))
+    rep["llama"]["1x1_bit_for_bit"] = bits
+    log(f"sharded LM {LM_SHARD_ARCH}: the 1 x 1 mesh's {LM_SHARD_STEPS} "
+        f"steps bit for bit with one device (loss, grad norm, every "
+        f"parameter and moment): {bits}")
+    if not bits:
+        fail("sharded LM: the 1 x 1 mesh's steps differ from one device's")
+    del gathered
+    trace(m11)
+    rep["llama"]["1x1"] = m11["r"]
+    del m11
+    free_card()
+    trace(one)
+    rep["llama"]["single"] = one["r"]
+    del one
+    free_card()
+    m22 = train(mesh22)
+    trace(m22)
+    rep["llama"]["2x2"] = m22["r"]
+    # what the split adds in copy, cast and cat kernels over one device's
+    # (its copies between cards are not measured: one card)
+    tr1, tr4 = (rep["llama"][k]["trace"] for k in ("single", "2x2"))
+    rep["llama"]["split_copy_cat_ms"] = \
+        tr4["copies_ms"] + tr4["gathers_ms"] - tr1["copies_ms"] - \
+        tr1["gathers_ms"]
+    for name in ("single", "1x1", "2x2"):
+        r = rep["llama"][name]
+        tr = r["trace"]
+        log(f"sharded LM {LM_SHARD_ARCH} train, {name}: {r['step_ms_median']:.2f} "
+            f"ms a step (median of steps 2-{LM_SHARD_STEPS}; all "
+            f"{[round(v, 2) for v in r['step_ms']]}), {r['tokens_s']:.0f} "
+            f"tokens/s, peak {r['peak_mem_bytes'] / 2**30:.2f} GiB (above "
+            f"what was held before the run), losses "
+            f"{[round(v, 4) for v in r['losses']]}, grad norms "
+            f"{[round(v, 3) for v in r['grad_norms']]}; traced step busy "
+            f"{tr['busy_ms']:.1f} of {tr['window_ms']:.1f} ms "
+            f"({100 * tr['busy_share']:.1f} %), {tr['device_intervals']:.0f} "
+            f"device intervals; copy/cast kernels {tr['copies_ms']:.1f} ms "
+            f"({100 * tr['copies_share']:.1f} % of device time), gathers "
+            f"{tr['gathers_ms']:.1f} ms ({100 * tr['gathers_share']:.1f} %); "
+            f"top " + ", ".join(f"{k[:40]} {v:.1f}"
+                                for k, v in tr["top_ms"].items())
+            + f"; {smi}")
+    log(f"sharded LM {LM_SHARD_ARCH} train: the 2 x 2 split's copy, cast "
+        f"and cat kernels beyond one device's "
+        f"{rep['llama']['split_copy_cat_ms']:.1f} ms a step (one card: "
+        f"copies between cards not measured)")
+    if not all(math.isfinite(v) for v in rep["llama"]["2x2"]["losses"] +
+               rep["llama"]["2x2"]["grad_norms"]):
+        fail(f"sharded LM 2 x 2: {rep['llama']['2x2']}")
+
+    # the 2 x 2 train state saved and restored onto the 1 x 1 mesh
+    t1 = time.perf_counter()
+    state = {"0": m22["params"], "1": m22["opt"]}
+    whole = gather_tree(state, torch.device("cpu"))
+    sh11 = steps.param_shardings(cfg, mesh11)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        save(d, LM_SHARD_STEPS, state)
+        back, _ = restore(d, state, shardings={
+            "0": sh11, "1": {"m": sh11, "v": sh11, "count": None}})
+    ok = all(isinstance(t, shd.Sharded) and t.mesh is mesh11
+             for t in tree_leaves(back["0"]))
+    ok = ok and same(gather_tree(back, torch.device("cpu")), whole)
+    rep["checkpoint_2x2_to_1x1"] = {"bit_for_bit": ok,
+                                    "s": time.perf_counter() - t1}
+    log(f"sharded LM {LM_SHARD_ARCH}: the 2 x 2 train state saved and "
+        f"restored onto the 1 x 1 mesh bit for bit: {ok} "
+        f"({rep['checkpoint_2x2_to_1x1']['s']:.1f} s)")
+    if not ok:
+        fail("sharded LM: the 2 x 2 checkpoint restored onto 1 x 1 differs")
+    del back, whole
+
+    # int8 gradient compression over the (2, 2, 2) mesh's pod axis: the
+    # two halves of a batch as the two pods' gradients, card against CPU
+    t1 = time.perf_counter()
+    model = registry.get_model(cfg)
+    lg = steps._loss_with_microbatch(
+        model, cfg, dataclasses.replace(run, microbatch=None,
+                                        global_batch=2), mesh22,
+        steps._rules(mesh22, False))
+    batch = batch_at(cfg, LM_TRAIN_SEQ, LM_TRAIN_BATCH, 7, run.seed,
+                     device=dev)
+    pods = [gather_tree(lg(m22["params"], {k: v[i:i + 2] for k, v in
+                                           batch.items()})[1])
+            for i in (0, 2)]
+    errs = [tree_map(lambda t: t.float() * 1e-2, pods[1 - i])
+            for i in range(2)]
+    del m22, state
+    free_card()
+    got, got_err = compression.compressed_grad_mean(pods, errs, pod)
+    cpu_pod = make_mesh_for(8, 2, 4, device="cpu", host_devices=8)
+    want, want_err = compression.compressed_grad_mean(
+        [tree_map(lambda t: t.cpu(), g) for g in pods],
+        [tree_map(lambda t: t.cpu(), e) for e in errs], cpu_pod)
+    ok = all(a.is_cuda for a in tree_leaves(got[0])) and all(
+        same(tree_map(lambda t: t.cpu(), a), b)
+        for a, b in zip(got + got_err, want + want_err))
+    n_el = sum(t.numel() for t in tree_leaves(pods[0]))
+    rep["compression"] = {"bit_for_bit": ok, "elements_a_pod": n_el,
+                          "s": time.perf_counter() - t1}
+    log(f"sharded LM: compressed_grad_mean over the (2, 2, 2) mesh's pod "
+        f"axis on {LM_SHARD_ARCH}'s gradients ({n_el:,} a pod, bf16): card "
+        f"bit for bit with the CPU, means and residuals: {ok} "
+        f"({rep['compression']['s']:.1f} s)")
+    if not ok:
+        fail("sharded LM: compressed_grad_mean differs card vs CPU")
+    del pods, errs, got, got_err, want, want_err
+    free_card()
+
+    # bf16 serving on the 2 x 2 mesh beside one device, and on the 2 x 2
+    # mesh with its row-parallel partials computed and summed in fp32 and
+    # cast once (as one device's GEMM accumulates): how much of the
+    # greedy disagreement the bf16 partial sums make
+    t1 = time.perf_counter()
+    from repro_torch.models import layers as L
+    per_block = L._per_block
+
+    def fp32_partials(x, w, fn, x_dim, out_dim):
+        if out_dim is not None or x.dtype != torch.bfloat16:
+            return per_block(x, w, fn, x_dim, out_dim)
+        return per_block(x, w, lambda a, b: fn(a.float(), b.float()),
+                         x_dim, None).to(x.dtype)
+    srun = RunConfig(model=cfg, seq_len=LM_PROMPT + LM_SHARD_DECODE,
+                     global_batch=LM_BATCH)
+    inputs = batch_at(cfg, LM_PROMPT, LM_BATCH, 0, mode="prefill",
+                      device=dev)
+    outs = {}
+    for name, mesh in (("single", None), ("2x2", mesh22),
+                       ("2x2_fp32_partials", mesh22)):
+        params = (steps.init_lm_params(cfg, 0, dev) if mesh is None else
+                  steps.init_lm_params(cfg, 0, mesh=mesh))
+        if name == "2x2_fp32_partials":
+            L._per_block = fp32_partials
+        try:
+            steps.generate(srun, params, inputs, 2, device=dev, mesh=mesh)
+            outs[name] = steps.generate(srun, params, inputs,
+                                        LM_SHARD_DECODE, device=dev,
+                                        mesh=mesh, keep_logits=True)
+        finally:
+            L._per_block = per_block
+        del params
+        free_card()
+    ref = outs["single"]
+    sv = rep["llama"]["serve"] = {
+        name: {"prefill_ms": o["prefill_ms"],
+               "prefill_tok_s": LM_BATCH * LM_PROMPT / o["prefill_ms"] * 1e3,
+               "decode_ms_median": statistics.median(o["decode_ms"])}
+        for name, o in outs.items()}
+
+    def margin(lg):
+        top = lg.float().topk(2, -1).values
+        return top[..., 0] - top[..., 1]
+    # the first step apart of each sequence (a greedy decode follows its
+    # own tokens after that, so the logits are compared up to it): the
+    # largest logit gap there against one device's top-1 - top-2 margin
+    for name in ("2x2", "2x2_fp32_partials"):
+        o = outs[name]
+        eq = o["tokens"] == ref["tokens"]
+        seqs = []
+        for b in range(LM_BATCH):
+            k = int((~eq[b]).nonzero()[0]) if bool((~eq[b]).any()) else None
+            at = k if k is not None else 0
+            gap = float((o["logits"][at][b].float() -
+                         ref["logits"][at][b].float()).abs().max())
+            seqs.append({"first_step_apart": k, "gap_there": gap,
+                         "margin_there": float(margin(ref["logits"][at][b]))})
+        sv[name].update(
+            greedy_agreement=float(eq.float().mean()), sequences=seqs,
+            prefill_gap=float((o["logits"][0].float() -
+                               ref["logits"][0].float()).abs().max()))
+    sv["prefill_margins"] = [float(v) for v in margin(ref["logits"][0])]
+    top = float(ref["logits"][0].float().abs().max())
+    sv["bf16_ulp_at_largest_logit"] = \
+        torch.finfo(torch.bfloat16).eps * 2 ** math.floor(math.log2(top))
+    for name in ("2x2", "2x2_fp32_partials"):
+        v = sv[name]
+        log(f"sharded LM {LM_SHARD_ARCH} serving, bf16, B={LM_BATCH}, prompt "
+            f"{LM_PROMPT}, {LM_SHARD_DECODE} greedy steps, {name}: prefill "
+            f"{v['prefill_ms']:.1f} ms (one device "
+            f"{sv['single']['prefill_ms']:.1f}), decode "
+            f"{v['decode_ms_median']:.2f} ms a step (one device "
+            f"{sv['single']['decode_ms_median']:.2f}); greedy tokens agree "
+            f"at {100 * v['greedy_agreement']:.1f} %; prefill logits at most "
+            f"{v['prefill_gap']:.3e} apart; per sequence (first step apart, "
+            f"largest logit gap there, one device's top-1 - top-2 margin "
+            f"there): " + ", ".join(
+                f"({q['first_step_apart']}, {q['gap_there']:.3e}, "
+                f"{q['margin_there']:.3e})" for q in v["sequences"])
+            + f" (logged, bf16)")
+    log(f"sharded LM {LM_SHARD_ARCH} serving: one device's prefill top-1 - "
+        f"top-2 margins {[f'{m:.3e}' for m in sv['prefill_margins']]}, "
+        f"bf16 ulp at the largest logit {sv['bf16_ulp_at_largest_logit']:.3e}"
+        f" ({time.perf_counter() - t1:.1f} s)")
+    rep["llama_wall_s"] = time.perf_counter() - t0
+
+    # 2. fp32 gates, full width, depth 2 (the hybrid 3), weights scaled to
+    # input width, no MoE token dropped; the hybrid's conv and the MoE's
+    # aux loss on
+    t0 = time.perf_counter()
+    tol = LM_SHARD_TOL
+    conv_rows = [0]
+    conv = rglru._depthwise_wino_conv_rows
+    # the first conv's input of a run, by the run's name (set while a run
+    # records): layer 0's ``x @ w_x`` of an input that is alike on every
+    # mesh, so a difference there is the product's own rounding
+    first_in: dict = {}
+    recording = [None]
+
+    def counted(xs, *a, **k):
+        conv_rows[0] += len(xs) > 1
+        if recording[0] is not None and recording[0] not in first_in:
+            first_in[recording[0]] = torch.cat(
+                [x.detach().float().to(dev) for x in xs])
+        return conv(xs, *a, **k)
+
+    def per_row(xs, *a, **k):
+        """The planted fault: each row's conv with its own scales."""
+        return [conv([x], *a, **k)[0] for x in xs]
+    rglru._depthwise_wino_conv_rows = counted
+
+    def gate_cfg(arch, **kw):
+        c0 = ARCHS[arch]
+        ch = dict(n_layers=3 if c0.family == "hybrid" else 2,
+                  param_dtype="float32", **kw)
+        if c0.n_experts:
+            ch["capacity_factor"] = c0.n_experts / c0.top_k
+        return dataclasses.replace(c0, **ch)
+
+    problems = []
+
+    def close(what, got, want, where=None, floor=0.0):
+        d = (got.float() - want.float()).abs()
+        bound = tol * (1 + float(want.float().abs().max())) \
+            if want.numel() else 0.0
+        inside = d <= bound if where is None else \
+            torch.where(where, d <= bound, d <= floor + bound)
+        worst = float(d.max()) if d.numel() else 0.0
+        if not bool(inside.all()):
+            problems.append(f"{what}: {worst:.3e} past {tol} of 1 + its "
+                            f"largest")
+        return worst
+
+    def off_tier(got, want, grads, lr):
+        """Of the parameters after one step: those whose gradient (here
+        the first moment, its multiple) is above 1e-3 of its leaf's
+        largest and lie past the tier, of how many such; those below it
+        past 2 lr + the tier (Adam's first step moves any parameter by
+        about lr); the largest distance."""
+        n_off = n = n_low = 0
+        worst = 0.0
+        for a, b, g in zip(tree_leaves(got), tree_leaves(want),
+                           tree_leaves(grads)):
+            d = (a.float() - b.float()).abs()
+            bound = tol * (1 + float(b.float().abs().max()))
+            above = g.abs() > 1e-3 * float(g.abs().max())
+            n_off += int((above & (d > bound)).sum())
+            n_low += int((~above & (d > 2 * lr + bound)).sum())
+            n += int(above.sum())
+            worst = max(worst, float(d.max()))
+        return n_off, n, n_low, worst
+
+    def train_gate(arch, cfg, mesh, fsdp=False):
+        """One step on ``mesh``, one on one device and one on one device
+        with every weight one ulp off (how far fp32 rounding alone moves
+        this model's step); where the quantized conv runs, also one step
+        on ``mesh`` with the planted per-row-scale conv, which the gate
+        must refuse."""
+        model = registry.get_model(cfg)
+        base = fan_in_scaled(steps.init_lm_params(cfg, 1, dev), model, cfg)
+        run = build_run(cfg, seq_len=LM_SHARD_GATE_SEQ, fsdp=fsdp,
+                        total_steps=10)
+        batch = batch_at(cfg, LM_SHARD_GATE_SEQ, LM_TRAIN_BATCH, 2,
+                         device=dev)
+        sh = steps.param_shardings(cfg, mesh, fsdp=fsdp)
+        conv_on = cfg.use_winograd_conv
+
+        def mesh_step():
+            p_sh = place_tree(tree_map(torch.clone, base), sh)
+            _, _, m_sh = steps.make_train_setup(run, mesh=mesh).step_fn(
+                p_sh, adamw_init(p_sh), batch, 1)
+            p_sh = gather_tree(p_sh)
+            free_card()
+            return p_sh, m_sh
+        first_in.clear()
+        recording[0] = "mesh" if conv_on else None
+        p_sh, m_sh = mesh_step()
+        if conv_on:
+            rglru._depthwise_wino_conv_rows = per_row
+            try:
+                recording[0] = None
+                p_f, m_f = mesh_step()
+            finally:
+                rglru._depthwise_wino_conv_rows = counted
+        one = steps.make_train_setup(run, dev).step_fn
+        p_n = tree_map(lambda t: t * (1 + 2.0 ** -23), base)
+        p_n, _, m_n = one(p_n, adamw_init(p_n), batch, 1)
+        free_card()
+        recording[0] = "one" if conv_on else None
+        p1, o1, m1 = one(base, adamw_init(base), batch, 1)
+        recording[0] = None
+        lr = run.lr
+        w = {"loss": close(f"{arch} loss", m_sh["loss"], m1["loss"]),
+             "grad_norm": close(f"{arch} grad norm", m_sh["grad_norm"],
+                                m1["grad_norm"]),
+             "ulp_loss": abs(float(m_n["loss"]) - float(m1["loss"])),
+             "ulp_grad_norm": abs(float(m_n["grad_norm"]) -
+                                  float(m1["grad_norm"]))}
+        off, n, low, w["params"] = off_tier(p_sh, p1, o1["m"], lr)
+        ulp_off, _, _, w["ulp_params"] = off_tier(p_n, p1, o1["m"], lr)
+        w.update(params_off=off, params_held=n, ulp_params_off=ulp_off,
+                 loss_value=float(m1["loss"]), depth=cfg.n_layers,
+                 mesh=dict(mesh.shape), fsdp=fsdp)
+        # the parameters at the tier; where the fake-quant conv runs, the
+        # products' own rounding on the mesh reaches the conv's casts and
+        # STE masks, which flip, so there up to LM_SHARD_CONV_ULPS times
+        # as many past it as one ulp of every weight puts past it on one
+        # device, and the planted per-row-scale conv must be past that
+        allowed = max(LM_SHARD_CONV_ULPS * ulp_off, n // 1000) \
+            if conv_on else 0
+        if low or off > allowed:
+            problems.append(f"{arch} on {dict(mesh.shape)}: {off} of {n} "
+                            f"parameters past {tol} of 1 + their leaf's "
+                            f"largest (allowed {allowed}; one ulp of the "
+                            f"weights: {ulp_off}), {low} past 2 lr")
+        if conv_on:
+            d = (first_in["mesh"] - first_in["one"]).abs()
+            w["first_conv_input"] = {
+                "max_abs": float(d.max()), "elements_apart": int(
+                    (d > 0).sum()), "elements": d.numel(),
+                "largest": float(first_in["one"].abs().max())}
+            f_off, _, f_low, _ = off_tier(p_f, p1, o1["m"], lr)
+            w.update(fault_params_off=f_off, fault_low=f_low,
+                     fault_loss=abs(float(m_f["loss"]) - float(m1["loss"])),
+                     fault_grad_norm=abs(float(m_f["grad_norm"]) -
+                                         float(m1["grad_norm"])),
+                     allowed=allowed)
+            if f_off <= allowed and not f_low:
+                problems.append(f"{arch} on {dict(mesh.shape)}: the gate "
+                                f"passes the per-row-scale conv ({f_off} "
+                                f"of {n} past, allowed {allowed})")
+            del p_f
+        return w
+
+    def describe(w) -> str:
+        out = (f"loss {w['loss']:.2e}, grad norm {w['grad_norm']:.2e} "
+               f"apart (loss {w['loss_value']:.4f}); {w['params_off']} of "
+               f"{w['params_held']:,} held parameters past the tier, worst "
+               f"{w['params']:.2e}; one ulp of the weights on one device: "
+               f"loss {w['ulp_loss']:.2e}, grad norm "
+               f"{w['ulp_grad_norm']:.2e}, {w['ulp_params_off']} past the "
+               f"tier (gate {tol} of 1 + the largest)")
+        if "fault_params_off" in w:
+            n = max(w["params_held"], 1)
+            fi = w["first_conv_input"]
+            out += (f"; shares past: mesh {100 * w['params_off'] / n:.3f} %, "
+                    f"one ulp {100 * w['ulp_params_off'] / n:.3f} %, planted "
+                    f"per-row-scale conv {100 * w['fault_params_off'] / n:.3f}"
+                    f" % ({w['fault_params_off']}; loss "
+                    f"{w['fault_loss']:.2e}, grad norm "
+                    f"{w['fault_grad_norm']:.2e} apart), allowed "
+                    f"{w['allowed']} ({LM_SHARD_CONV_ULPS}x one ulp); the "
+                    f"first conv's input (layer 0's x @ w_x) on the mesh: "
+                    f"{fi['elements_apart']:,} of {fi['elements']:,} "
+                    f"elements apart, at most {fi['max_abs']:.2e} (largest "
+                    f"{fi['largest']:.2e})")
+        return out
+
+    # the lockstep conv: the rows' slabs against the whole batch on the
+    # same inputs, bit for bit (every per-tensor scale over all rows)
+    from repro_torch.core import winograd as W
+    hcfg = ARCHS["recurrentgemma-2b"]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((4, LM_SHARD_GATE_SEQ, hcfg.d_rnn), generator=gen,
+                    device=dev)
+    mats = W.make_matrices(hcfg.winograd)
+    U = rglru._depthwise_wino_weights(
+        torch.randn((hcfg.conv_width, hcfg.d_rnn), generator=gen,
+                    device=dev), hcfg.winograd, mats)
+    whole_y = rglru._depthwise_wino_conv(x, U, hcfg.winograd, mats)
+    rows_y = torch.cat(rglru._depthwise_wino_conv_rows(
+        list(x.split(1)), U, hcfg.winograd, mats))
+    ok = torch.equal(whole_y, rows_y)
+    rep["conv_rows_bit_for_bit"] = ok
+    log(f"sharded LM: the quantized Toom-Cook conv over 4 rows' slabs "
+        f"(full width, S={LM_SHARD_GATE_SEQ}) bit for bit with the whole "
+        f"batch's conv: {ok}")
+    if not ok:
+        problems.append("the conv over rows differs from the whole batch's")
+    try:
+        for arch in LM_MODELS:
+            cfg = gate_cfg(arch)
+            w = train_gate(arch, cfg, mesh22)
+            rep["train_gates"][arch] = w
+            log(f"sharded LM train gate {arch} (full width, depth "
+                f"{cfg.n_layers}, fp32, B={LM_TRAIN_BATCH} S="
+                f"{LM_SHARD_GATE_SEQ}, microbatch {LM_TRAIN_MICRO}) on 2 x 2 "
+                f"against one device: " + describe(w))
+            free_card()
+        cfg = gate_cfg("qwen2-moe-a2.7b", moe_groups=4)
+        w = train_gate("qwen2-moe-a2.7b", cfg, pod, fsdp=True)
+        rep["train_gates"]["qwen2-moe-a2.7b (2,2,2) fsdp"] = w
+        log(f"sharded LM train gate qwen2-moe-a2.7b on (2, 2, 2) pod x data "
+            f"x model, fsdp, moe_groups 4, depth 2, fp32: " + describe(w))
+        free_card()
+    finally:
+        rglru._depthwise_wino_conv_rows = conv
+    if not conv_rows[0]:
+        fail("sharded LM: the quantized conv never ran over several rows")
+    rep["conv_lockstep_calls"] = conv_rows[0]
+    rep["train_gates_wall_s"] = time.perf_counter() - t0
+
+    # 3. fp32 serving gates on the 2 x 2 mesh: prefill's last logits and
+    # one decode step against one device, phase 9's tolerance
+    t0 = time.perf_counter()
+    g = LM_GATE
+    for arch in LM_MODELS:
+        cfg = gate_cfg(arch)
+        model = registry.get_model(cfg)
+        run = RunConfig(model=cfg, seq_len=g["S"], global_batch=g["B"])
+        params = fan_in_scaled(steps.init_lm_params(cfg, 1, dev), model, cfg)
+        p_sh = place_tree(tree_map(torch.clone, params),
+                          steps.param_shardings(cfg, mesh22))
+        worst = 0.0
+
+        def hold(what, got, want):
+            d = float((got - want).abs().max())
+            if not torch.allclose(got, want, rtol=g["rtol"], atol=g["atol"]):
+                problems.append(f"serve {arch} {what}: {d:.3e} apart")
+            return d
+        if cfg.is_encoder:
+            batch = batch_at(cfg, g["S"], g["B"], 1, mode="prefill",
+                             device=dev)
+            with torch.inference_mode():
+                want, _ = model.forward(params, batch, cfg)
+                with shd.running(steps._rows(
+                        mesh22, batch, steps._rules(mesh22, False))):
+                    got, _ = model.forward(p_sh, batch, cfg)
+            worst = hold("forward", got, want)
+        else:
+            inputs = batch_at(cfg, g["prompt"] + cfg.n_prefix, g["B"], 1,
+                              mode="prefill", device=dev)
+            a = steps.generate(run, params, inputs, 1, device=dev,
+                               keep_logits=True)
+            b = steps.generate(run, p_sh, inputs, 1, mesh=mesh22,
+                               keep_logits=True)
+            for i, (x, y) in enumerate(zip(b["logits"], a["logits"])):
+                worst = max(worst, hold("prefill" if i == 0 else "decode",
+                                        x, y))
+        rep["serve_gates"][arch] = worst
+        log(f"sharded LM serve gate {arch} (fp32, depth {cfg.n_layers}, "
+            f"B={g['B']}, prompt {g['prompt']}): 2 x 2 "
+            + ("forward" if cfg.is_encoder else "prefill and one decode step")
+            + f" within rtol {g['rtol']}, atol {g['atol']} of one device, "
+            f"worst {worst:.2e}")
+        del params, p_sh
+        free_card()
+    rep["serve_gates_wall_s"] = time.perf_counter() - t0
+    rep["gate_failures"] = problems
+    mm.allow_tf32 = tf32
+    if problems:
+        fail("sharded LM gates: " + "; ".join(problems))
+    return rep
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1781,9 +2414,11 @@ def main() -> int:
     from repro_torch.serving.metrics import device_busy
 
     report: dict = {}
+    walls: dict = {}            # phase number -> its start (perf_counter)
     dev = torch.device("cuda")
 
     # 1. device -------------------------------------------------------------
+    walls[1] = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1801,6 +2436,7 @@ def main() -> int:
                         "torch": torch.__version__}
 
     # 2. build --------------------------------------------------------------
+    walls[2] = time.perf_counter()
     t0 = time.perf_counter()
     built = _build.build_all()
     report["build_s"] = time.perf_counter() - t0
@@ -1876,6 +2512,7 @@ def main() -> int:
              f"({report['sass']['wino_gemm_kernel']})")
 
     # 3. kernels against their plain versions -------------------------------
+    walls[3] = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(0)
     errs = {k: 0.0 for k in TPU_KERNELS}
@@ -2117,6 +2754,7 @@ def main() -> int:
     del gen
 
     # 4. main path ----------------------------------------------------------
+    walls[4] = time.perf_counter()
     _build.reset_launches()
     with tempfile.TemporaryDirectory() as ckpt, \
             recording_scales() as scale_calls:
@@ -2170,6 +2808,7 @@ def main() -> int:
     del scale_calls
 
     # 5. times --------------------------------------------------------------
+    walls[5] = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(1)
     o = ops._operands(main_spec, dev)
     P, m = main_spec.n ** 2, main_spec.m
@@ -2426,6 +3065,7 @@ def main() -> int:
             log(f"  {v:8.3f} ms  {k[:100]}")
 
     # 6. train ---------------------------------------------------------------
+    walls[6] = time.perf_counter()
     torch.cuda.empty_cache()
     tr = train_resnet_qat.main(["--width", "1.0", "--batch", str(BATCH),
                                 "--steps", str(TRAIN_STEPS),
@@ -2470,6 +3110,7 @@ def main() -> int:
             log(f"  {v:8.3f} ms  {k[:100]}")
 
     # 7. serve ---------------------------------------------------------------
+    walls[7] = time.perf_counter()
     torch.cuda.empty_cache()
     from repro_torch.launch import serve
     _build.reset_launches()
@@ -2617,6 +3258,7 @@ def main() -> int:
             f"(launches {dict(_build.LAUNCHES)})")
 
     # 8. sharded -------------------------------------------------------------
+    walls[8] = time.perf_counter()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     report["sharded"], sharded_launches = sharded_phase(dev)
@@ -2626,6 +3268,7 @@ def main() -> int:
         f"{sharded_launches}; {report['sharded']['wall_s']:.1f}s in all")
 
     # 9. lm ----------------------------------------------------------------
+    walls[9] = time.perf_counter()
     t0 = time.perf_counter()
     _build.reset_launches()
     report["lm"] = lm_phase(dev, smi)
@@ -2636,6 +3279,7 @@ def main() -> int:
         f"{report['lm']['launches']}")
 
     # 10. train -------------------------------------------------------------
+    walls[10] = time.perf_counter()
     t0 = time.perf_counter()
     _build.reset_launches()
     report["train_lm"] = train_phase(dev, smi)
@@ -2644,6 +3288,23 @@ def main() -> int:
     log(f"phase 10 (LM training) {report['train_lm']['wall_s']:.1f}s; "
         f"launches of the five kernels (none lies on the LM path): "
         f"{report['train_lm']['launches']}")
+
+    # 11. sharded lm -------------------------------------------------------
+    walls[11] = time.perf_counter()
+    _build.reset_launches()
+    report["shard_lm"] = lm_shard_phase(dev, smi)
+    report["shard_lm"]["wall_s"] = time.perf_counter() - walls[11]
+    report["shard_lm"]["launches"] = dict(_build.LAUNCHES)
+    log(f"phase 11 (sharded LM) {report['shard_lm']['wall_s']:.1f}s; "
+        f"launches of the five kernels (none lies on the LM path): "
+        f"{report['shard_lm']['launches']}")
+    if any(report["shard_lm"]["launches"].values()):
+        fail(f"sharded LM: kernels launched {report['shard_lm']['launches']}")
+    walls[12] = time.perf_counter()
+    report["phase_wall_s"] = {n: walls[n + 1] - walls[n]
+                              for n in sorted(walls) if n + 1 in walls}
+    log("phase wall seconds: " + ", ".join(
+        f"{n}: {v:.1f}" for n, v in report["phase_wall_s"].items()))
 
     kernels = []
     for k, (src, replaces) in TPU_KERNELS.items():

@@ -8,8 +8,9 @@ RG-LRU state + conv tail, or the RWKV-6 matrix state), through
         [--device cpu]
 
 Runs on the card unless ``--device cpu``; without a card the default
-raises. One device: ``--model-parallel`` above 1 waits for the LM
-sharding slice.
+raises. ``--model-parallel M`` serves over the JAX launcher's mesh,
+``make_mesh_for(<devices>, M)``, of every card (or the CPU), or of
+``--host-devices N`` logical devices laid over them.
 """
 import argparse
 
@@ -17,6 +18,7 @@ from repro_torch.configs import ARCHS, tiny_variant
 from repro_torch.configs.base import RunConfig
 from repro_torch.data.pipeline import batch_at
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import logical_devices, make_mesh_for
 from repro_torch.launch.steps import generate, init_lm_params
 
 
@@ -27,13 +29,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--decode-len", type=int, default=32)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--host-devices", type=int, default=0,
+                    help="lay N logical devices over the cards (or the "
+                         "CPU) for the mesh")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
-    if args.model_parallel != 1:
-        raise SystemExit("--model-parallel: the port serves LMs on one "
-                         "device; LM sharding is a later slice (ROADMAP "
-                         "Queue A 7, LM sharding)")
 
     cfg = tiny_variant(ARCHS[args.arch])
     if cfg.is_encoder:
@@ -41,13 +42,16 @@ def main(argv=None) -> dict:
     dev = resolve_device(args.device)
     run = RunConfig(model=cfg, seq_len=args.prompt_len + args.decode_len,
                     global_batch=args.batch)
-    params = init_lm_params(cfg, 0, dev)
+    mesh = make_mesh_for(len(logical_devices(dev, args.host_devices)),
+                         args.model_parallel, device=dev,
+                         host_devices=args.host_devices)
+    params = init_lm_params(cfg, 0, mesh=mesh)
     inputs = batch_at(cfg, args.prompt_len, args.batch, 0, mode="prefill",
                       device=dev)
-    out = generate(run, params, inputs, args.decode_len, device=dev)
+    out = generate(run, params, inputs, args.decode_len, mesh=mesh)
     decode_s = sum(out["decode_ms"]) / 1e3
-    print(f"[serve-lm] {cfg.name} on {dev}: prefill {args.prompt_len} tok "
-          f"× {args.batch} seqs in {out['prefill_ms']:.1f} ms; decode "
+    print(f"[serve-lm] {cfg.name} on a {mesh.shape} mesh over {dev}: "
+          f"prefill {args.prompt_len} tok × {args.batch} seqs in {out['prefill_ms']:.1f} ms; decode "
           f"{args.decode_len} steps in {decode_s * 1e3:.1f} ms "
           f"({args.decode_len * args.batch / max(decode_s, 1e-9):.1f} "
           f"tok/s; {out['timer']})")

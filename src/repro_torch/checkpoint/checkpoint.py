@@ -9,6 +9,11 @@ their dtype in the manifest, as there. Retention keeps the newest K
 complete checkpoints. ``peek_leaves`` reads leaves without a template
 (the serving plan is recovered that way), and ``Checkpointer`` writes in
 a background thread.
+
+A ``distributed.sharding.Sharded`` leaf is saved whole (its blocks
+gathered), so a checkpoint written over any mesh restores onto any
+other, or onto one device: ``restore(shardings=)`` places each leaf as
+it loads, as the JAX package's ``restore(shardings=)`` does.
 """
 from __future__ import annotations
 
@@ -21,6 +26,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import Sharded, place_tree
 
 __all__ = ["save", "restore", "latest_step", "peek_leaves", "Checkpointer"]
 
@@ -45,6 +52,8 @@ def _unflatten_like(tree_like: Any, leaf_fn, prefix: str = "") -> Any:
 
 
 def _to_numpy(leaf) -> tuple[np.ndarray, str]:
+    if isinstance(leaf, Sharded):
+        leaf = leaf.gather(torch.device("cpu"))
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -113,11 +122,14 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(directory: str, tree_like: Any,
-            step: Optional[int] = None) -> tuple[Any, int]:
+def restore(directory: str, tree_like: Any, step: Optional[int] = None,
+            shardings: Any = None) -> tuple[Any, int]:
     """Restore into the structure of ``tree_like`` (nested dicts whose
-    leaves are tensors or numpy arrays). Returns (tree, step): each leaf a
-    CPU tensor of the template leaf's dtype."""
+    leaves are tensors, ``Sharded`` tensors or numpy arrays). Returns
+    (tree, step): each leaf a CPU tensor of the template leaf's dtype,
+    or, with ``shardings`` (a tree of ``NamedSharding``s like
+    ``tree_like``; a None leaf stays on the host), placed under its
+    sharding as it loads."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -138,10 +150,12 @@ def restore(directory: str, tree_like: Any,
             else:
                 # a copy keeps a 0-d leaf 0-d (ascontiguousarray makes it 1-d)
                 t = torch.from_numpy(arr.copy(order="C"))
-            dtype = (like.dtype if isinstance(like, torch.Tensor)
+            dtype = (like.dtype if isinstance(like, (torch.Tensor, Sharded))
                      else torch.from_numpy(np.asarray(like)).dtype)
             return t.to(dtype)
         tree = _unflatten_like(tree_like, leaf)
+    if shardings is not None:
+        tree = place_tree(tree, shardings)
     return tree, step
 
 
@@ -217,6 +231,8 @@ def _host_tree(tree: Any) -> Any:
     where the leaf is already there: the caller may change it after)."""
     if isinstance(tree, dict):
         return {k: _host_tree(v) for k, v in tree.items()}
+    if isinstance(tree, Sharded):
+        tree = tree.gather(torch.device("cpu"))
     if isinstance(tree, torch.Tensor):
         return tree.detach().to("cpu", copy=True)
     return np.array(tree)

@@ -1,15 +1,27 @@
-"""LM steps on one device (the port's counterpart of
+"""LM steps on one device or over a mesh (the port's counterpart of
 ``repro.launch.steps``): the train step with microbatched gradient
 accumulation and its initial state; the prefill and decode step
 functions, and the one loop that runs prefill → grow the cache → greedy
 decode, which the example and ``chip_smoke.py`` both call.
 
 The JAX steps are jitted with parameter, batch and cache shardings and
-donate their state; here the steps run eagerly on one device. The train
-step writes the new parameters and moments into the tensors it was given
-(JAX donates them), and the decode step writes the cache in place; the
-serving steps run under ``torch.inference_mode``. LM sharding is a later
-slice.
+donate their state; here the steps run eagerly. The train step writes
+the new parameters and moments into the tensors it was given (JAX
+donates them), and the decode step writes the cache in place; the
+serving steps run under ``torch.inference_mode``.
+
+With ``mesh=`` (a ``distributed.sharding.Mesh``) one process drives the
+mesh, as the sharded conv serving does: every parameter and moment
+leaf is ``Sharded`` under ``pspec`` of its logical axes and
+``sharding.rules(fsdp=run.fsdp, multi_pod=)``, ``multi_pod`` read off
+the mesh (a "pod" axis); a step takes a batch of whole tensors, cuts it
+into rows as ``_batch_shardings`` places it (dim 0 over
+``_dp_for_dim``'s data axes) and runs the model under those ``Rows``;
+gradients reach each block through autograd, and AdamW updates each
+block where it lives. The step computes the function the one-device
+step computes on the whole batch (on a 1 × 1 mesh, bit for bit). The
+decode cache is placed as the batch part of ``_cache_pspec`` says
+(its heads stay whole, as attention runs whole on each row's device).
 """
 from __future__ import annotations
 
@@ -19,23 +31,141 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import (NamedSharding, P, Rows,
+                                              Sharded, from_blocks,
+                                              map_blocks, tree_blocks)
 from repro_torch.models import registry
 from repro_torch.models.param import init_params, tree_leaves, tree_map
 from repro_torch.optim.optimizer import (adamw_init, adamw_update_,
                                          cosine_schedule)
 
 __all__ = ["TrainSetup", "make_train_setup", "init_train_state",
-           "make_serve_setup", "init_lm_params", "grow_cache", "generate"]
+           "make_serve_setup", "init_lm_params", "param_shardings",
+           "grow_cache", "generate"]
 
 
 def _check_on(dev: torch.device, what: str, tree) -> None:
     """Raise unless every tensor of ``tree`` lies on ``dev``: a step built
     for one device does not run on another."""
     for t in tree_leaves(tree):
+        if isinstance(t, Sharded):
+            raise ValueError(f"{what} sharded over a mesh; this step runs "
+                             f"on {dev}")
         if t.device.type != dev.type or (
                 dev.index is not None and t.device.index != dev.index):
             raise ValueError(f"{what} on {t.device}; this step runs on "
                              f"{dev}")
+
+
+def _check_over(mesh, what: str, tree) -> None:
+    """Raise unless every leaf of ``tree`` is ``Sharded`` over ``mesh``."""
+    for t in tree_leaves(tree):
+        if not isinstance(t, Sharded) or t.mesh is not mesh:
+            raise ValueError(f"{what} not placed over this step's mesh "
+                             f"{mesh.shape}")
+
+
+# ---------------------------------------------------------------------------
+# Placement (the JAX package's ``steps.py`` helpers)
+# ---------------------------------------------------------------------------
+
+def _dp_for_dim(size: int, mesh, rule_map):
+    """The largest data-parallel mapping that divides ``size`` (the
+    batch's rule, then its last axis, then its first; None: whole)."""
+    dp = rule_map["batch"]
+    cands = [dp] if not isinstance(dp, tuple) else \
+        [dp, dp[-1:], dp[:1], None]
+    for c in ([dp, None] if not isinstance(dp, tuple) else cands):
+        if c is None:
+            return None
+        ext = 1
+        for a in (c if isinstance(c, tuple) else (c,)):
+            ext *= mesh.shape[a]
+        if size % ext == 0:
+            return c
+    return None
+
+
+def _batch_shardings(mesh, batch_tree, rule_map):
+    """A ``NamedSharding`` a batch leaf: dim 0 over ``_dp_for_dim``."""
+    return tree_map(lambda x: NamedSharding(mesh, P(
+        _dp_for_dim(x.shape[0], mesh, rule_map),
+        *([None] * (len(x.shape) - 1)))), batch_tree)
+
+
+def _cache_pspec(cfg, cache_abstract: dict, mesh, rule_map) -> dict:
+    """A ``NamedSharding`` a decode-cache leaf, as the JAX package's:
+    the batch (dim 1) over the data axes; k/v's heads (else their head
+    dim), RWKV's state heads, and any other leaf's trailing channels
+    over "model" where they divide."""
+    msize = mesh.shape["model"]
+
+    def leaf(name, x):
+        shape = tuple(x.shape)
+        nd = len(shape)
+        dp = _dp_for_dim(shape[1], mesh, rule_map) if nd >= 2 else None
+        if name in ("k", "v") and nd == 5:       # (L, B, S, Hkv, dh)
+            if shape[3] % msize == 0:
+                return NamedSharding(mesh, P(None, dp, None, "model", None))
+            if shape[4] % msize == 0:
+                return NamedSharding(mesh, P(None, dp, None, None, "model"))
+            return NamedSharding(mesh, P(None, dp, None, None, None))
+        if name == "S" and nd == 5:              # (L, B, H, dk, dv)
+            if shape[2] % msize == 0:
+                return NamedSharding(mesh, P(None, dp, "model", None, None))
+            return NamedSharding(mesh, P(None, dp, None, None, None))
+        if nd >= 2:
+            spec = [None, dp] + [None] * (nd - 3)
+            spec.append("model" if shape[-1] % msize == 0 else None)
+            return NamedSharding(mesh, P(*spec))
+        return NamedSharding(mesh, P())
+    return {name: leaf(name, x) for name, x in cache_abstract.items()}
+
+
+def _rules(mesh, fsdp: bool) -> Optional[dict]:
+    """The rules over ``mesh``: the batch (and with ``fsdp`` the embed
+    dims) over ("pod", "data") where the mesh has a "pod" axis, else over
+    "data" (None without a mesh)."""
+    if mesh is None:
+        return None
+    return shd.rules(fsdp=fsdp, multi_pod="pod" in mesh.axis_names)
+
+
+def param_shardings(cfg, mesh, *, fsdp: bool = False) -> dict:
+    """The ``NamedSharding`` of every parameter leaf of ``cfg`` over
+    ``mesh``: ``tree_shardings`` of its logical axes under the rules."""
+    specs = registry.get_model(cfg).param_specs(cfg)
+    return shd.tree_shardings(mesh, tree_map(lambda s: s.axes, specs),
+                              _rules(mesh, fsdp), specs)
+
+
+def _rows(mesh, batch: dict, rule_map) -> Rows:
+    """The rows ``batch`` (whole tensors of one batch size) runs as over
+    ``mesh``: dim 0 cut as ``_batch_shardings`` places it (one row
+    without a mesh)."""
+    if mesh is None:
+        return Rows()
+    dp = {s.spec[0] for s in tree_leaves(
+        _batch_shardings(mesh, batch, rule_map))}
+    if len(dp) != 1:
+        raise ValueError(f"batch leaves cut {dp} ways: one batch size")
+    return Rows(mesh, dp.pop())
+
+
+def _check_cache(cfg, cache: dict, mesh, rule_map) -> None:
+    """Raise unless every leaf of a prefill's cache (cut along the batch,
+    dim 1, by the rows) is placed as ``_cache_pspec`` places it, less its
+    "model" entries: attention runs whole on each row's device, so heads
+    and channels stay whole (ROADMAP, Queue A 7.2)."""
+    for name, sh in _cache_pspec(cfg, cache, mesh, rule_map).items():
+        t = cache[name]
+        n = len(t.shape)
+        want = tuple(None if e == "model" else e for e in sh.spec)
+        if tuple(t.spec) + (None,) * (n - len(t.spec)) != \
+                want + (None,) * (n - len(want)):
+            raise ValueError(f"cache leaf {name!r} placed {t.spec}, not "
+                             f"{P(*want)}")
 
 
 # ---------------------------------------------------------------------------
@@ -53,31 +183,36 @@ class TrainSetup:
         self.lr_fn = lr_fn
 
 
-def _value_and_grad(model, cfg, params: dict, batch: dict):
+def _value_and_grad(model, cfg, params: dict, batch: dict,
+                    rows: Optional[Rows] = None):
     """The loss and the gradient of every parameter leaf (a tree like
-    ``params``, each leaf in its parameter's dtype; zeros for a leaf the
-    loss does not reach). Autograd runs on detached aliases of the
-    leaves, so ``params`` need not require gradients and may be written
-    in place once this returns."""
-    alias = tree_map(lambda t: t.detach().requires_grad_(), params)
-    with torch.enable_grad():
+    ``params``, each leaf in its parameter's dtype and layout; zeros for
+    a block the loss does not reach). Autograd runs on detached aliases
+    of the leaves (of each block of a ``Sharded`` leaf), so ``params``
+    need not require gradients and may be written in place once this
+    returns. ``rows``: the batch's rows over a mesh, installed for the
+    forward and for the backward's recomputations."""
+    alias = map_blocks(lambda t: t.detach().requires_grad_(), params)
+    blocks = tree_blocks(alias)
+    with torch.enable_grad(), shd.running(rows or Rows()):
         loss = model.loss_fn(alias, batch, cfg)
-        grads = iter(torch.autograd.grad(loss, tree_leaves(alias),
-                                         allow_unused=True))
-
-    def grad_of(t):                     # tree_map visits tree_leaves' order
-        g = next(grads)
-        return torch.zeros_like(t) if g is None else g
-    return loss.detach(), tree_map(grad_of, params)
+        grads = torch.autograd.grad(loss, blocks, allow_unused=True)
+    return loss.detach(), from_blocks(params, [
+        torch.zeros_like(t) if g is None else g
+        for t, g in zip(blocks, grads)])
 
 
-def _loss_with_microbatch(model, cfg, run) -> Callable:
+def _loss_with_microbatch(model, cfg, run, mesh=None,
+                          rule_map=None) -> Callable:
     """``(params, batch) → (loss, grads)``; with ``run.microbatch`` below
     the global batch, accumulated over its microbatches in order as the
     JAX scan does: ``loss / n_micro`` and ``g / n_micro`` (in the
-    gradient's dtype) added to fp32 zeros."""
+    gradient's dtype) added to fp32 zeros. Over ``mesh`` each
+    (micro)batch's rows are cut over the data axes (JAX constrains the
+    microbatch rows so)."""
     def plain(params, batch):
-        return _value_and_grad(model, cfg, params, batch)
+        return _value_and_grad(model, cfg, params, batch,
+                               _rows(mesh, batch, rule_map))
 
     if not run.microbatch or run.microbatch >= run.global_batch:
         return plain
@@ -89,36 +224,48 @@ def _loss_with_microbatch(model, cfg, run) -> Callable:
 
     def accum(params, batch):
         loss_acc = torch.zeros((), dtype=torch.float32,
-                               device=tree_leaves(params)[0].device)
-        g_acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                               device=p.device), params)
+                               device=tree_blocks(params)[0].device)
+        g_acc = map_blocks(lambda p: torch.zeros(
+            p.shape, dtype=torch.float32, device=p.device), params)
         for i in range(n_micro):
             micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
             loss, g = plain(params, micro)
             loss_acc = loss_acc + loss / n_micro
-            for a, b in zip(tree_leaves(g_acc), tree_leaves(g)):
+            for a, b in zip(tree_blocks(g_acc), tree_blocks(g)):
                 a.add_(b / n_micro)
             del g
         return loss_acc, g_acc
     return accum
 
 
-def make_train_setup(run, device=None) -> TrainSetup:
+def make_train_setup(run, device=None, *, mesh=None) -> TrainSetup:
     """The train step of ``run`` on ``device`` (resolved: a request for
-    the card without one raises): microbatched loss and gradients, then
-    AdamW on the cosine schedule (``run``'s lr, warm-up, total steps,
-    betas, weight decay and clip), written into ``params`` and
-    ``opt_state``. The step raises unless its parameters, optimizer state
-    and batch lie on that device."""
+    the card without one raises), or over ``mesh``: microbatched loss
+    and gradients, then AdamW on the cosine schedule (``run``'s lr,
+    warm-up, total steps, betas, weight decay and clip), written into
+    ``params`` and ``opt_state``. On one device the step raises unless
+    its parameters, optimizer state and batch lie on that device; over a
+    mesh, unless the state is placed over that mesh
+    (``init_train_state(mesh=)``); the batch is whole tensors on any of
+    its devices; a mesh with a "pod" axis cuts the batch (and with
+    ``run.fsdp`` the embed dims) over ("pod", "data"), else over "data"."""
     cfg = run.model
     model = registry.get_model(cfg)
-    dev = resolve_device(device)
     lr_fn = cosine_schedule(run.lr, run.warmup_steps, run.total_steps)
-    loss_grad = _loss_with_microbatch(model, cfg, run)
+    if mesh is None:
+        dev = resolve_device(device)
+    loss_grad = _loss_with_microbatch(model, cfg, run, mesh,
+                                      _rules(mesh, run.fsdp))
 
     def train_step(params, opt_state, batch, step: int):
-        _check_on(dev, "train state", {"params": params, "opt": opt_state})
-        _check_on(dev, "batch", batch)
+        if mesh is None:
+            _check_on(dev, "train state", {"params": params,
+                                           "opt": opt_state})
+            _check_on(dev, "batch", batch)
+        else:
+            _check_over(mesh, "train state", {"params": params,
+                                              "m": opt_state["m"],
+                                              "v": opt_state["v"]})
         loss, grads = loss_grad(params, batch)
         metrics = adamw_update_(grads, opt_state, params,
                                 lr=lr_fn(int(step)), b1=run.adam_b1,
@@ -130,11 +277,16 @@ def make_train_setup(run, device=None) -> TrainSetup:
     return TrainSetup(train_step, lr_fn)
 
 
-def init_train_state(run, seed: int = 0, device=None) -> tuple:
+def init_train_state(run, seed: int = 0, device=None, *,
+                     mesh=None) -> tuple:
     """(params, opt_state) of ``run``: random weights drawn on ``device``
-    (default: the card) from ``seed``, as ``init_lm_params``, and zero
-    moments of ``run.moment_dtype``."""
-    params = init_lm_params(run.model, seed, device)
+    (default: the card, or over a mesh its first device) from ``seed``,
+    as ``init_lm_params``, and zero moments of ``run.moment_dtype``. Over
+    ``mesh`` each leaf is drawn whole, in the one-device order from the
+    same generator, and placed before the next is drawn: the blocks hold
+    the one-device values bit for bit, and the peak is one leaf."""
+    params = init_lm_params(run.model, seed, device, mesh=mesh,
+                            fsdp=run.fsdp)
     return params, adamw_init(params, getattr(torch, run.moment_dtype))
 
 
@@ -142,14 +294,19 @@ def init_train_state(run, seed: int = 0, device=None) -> tuple:
 # Serving
 # ---------------------------------------------------------------------------
 
-def make_serve_setup(run, mode: str, device=None) -> Callable:
+def make_serve_setup(run, mode: str, device=None, *,
+                     mesh=None) -> Callable:
     """mode ∈ {"prefill", "decode"} → the step on ``device`` (resolved:
-    a request for the card without one raises). The step raises unless
-    its parameters and inputs lie on that device.
+    a request for the card without one raises), or over ``mesh``. On one
+    device the step raises unless its parameters and inputs lie on that
+    device; over a mesh, unless the parameters are placed over it. Its
+    inputs are whole tensors; its batch runs as rows over the data axes.
 
     prefill: ``step(params, batch) → (cache, last logits)``;
     decode: ``step(params, cache, tokens, pos) → (logits, cache)``, the
-    cache written in place.
+    cache written in place. Over a mesh the cache's leaves are
+    ``Sharded`` along the batch (dim 1, as ``_check_cache`` holds it) and
+    the logits whole on the mesh's first device.
 
     The step checks a parameter tree and slices its stacked layers once,
     the first time it is given that tree, and reuses both while it is
@@ -158,48 +315,91 @@ def make_serve_setup(run, mode: str, device=None) -> Callable:
     given another or is itself dropped."""
     cfg = run.model
     model = registry.get_model(cfg)
-    dev = resolve_device(device)
+    if mesh is None:
+        dev = resolve_device(device)
+    rule_map = _rules(mesh, run.fsdp)
     held: dict = {}
 
     def layers(params):
         if held.get("params") is not params:
-            _check_on(dev, "parameters", params)
+            if mesh is None:
+                _check_on(dev, "parameters", params)
+            else:
+                _check_over(mesh, "parameters", params)
             held.update(params=params,
                         layers=model.layer_params(params, cfg))
         return held["layers"]
 
     if mode == "prefill":
         def prefill_step(params, batch):
-            _check_on(dev, "batch", batch)
-            with torch.inference_mode():
-                return model.prefill(params, batch, cfg,
-                                     layers=layers(params))
+            if mesh is None:
+                _check_on(dev, "batch", batch)
+            with torch.inference_mode(), \
+                    shd.running(_rows(mesh, batch, rule_map)):
+                cache, logits = model.prefill(params, batch, cfg,
+                                              layers=layers(params))
+                if mesh is not None:
+                    _check_cache(cfg, cache, mesh, rule_map)
+            return cache, logits
         return prefill_step
     if mode != "decode":
         raise ValueError(f"mode {mode!r}: prefill or decode")
 
     def decode_step(params, cache, tokens, pos):
-        _check_on(dev, "decode inputs", {"cache": cache, "tokens": tokens,
-                                         "pos": pos})
-        with torch.inference_mode():
+        if mesh is None:
+            _check_on(dev, "decode inputs", {"cache": cache,
+                                             "tokens": tokens, "pos": pos})
+        with torch.inference_mode(), shd.running(
+                _rows(mesh, {"tokens": tokens}, rule_map)):
             return model.decode_step(params, cache, tokens, pos, cfg,
                                      layers=layers(params))
     return decode_step
 
 
-def init_lm_params(cfg, seed: int = 0, device=None) -> dict:
-    """Random weights of ``cfg`` drawn on ``device`` (default: the card)
-    by a generator of that device seeded with ``seed``."""
-    dev = resolve_device(device)
+def init_lm_params(cfg, seed: int = 0, device=None, *, mesh=None,
+                   fsdp: bool = False) -> dict:
+    """Random weights of ``cfg`` drawn on ``device`` (default: the card,
+    or over a mesh its first device) by a generator of that device
+    seeded with ``seed``; over ``mesh`` each leaf placed by
+    ``param_shardings`` as it is drawn."""
+    dev = resolve_device(mesh.first if device is None and mesh is not None
+                         else device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return init_params(registry.get_model(cfg).param_specs(cfg), gen)
+    specs = registry.get_model(cfg).param_specs(cfg)
+    if mesh is None:
+        return init_params(specs, gen)
+    sh = param_shardings(cfg, mesh, fsdp=fsdp)
+
+    def place(path, t):
+        node = sh
+        for k in path:
+            node = node[k]
+        return Sharded.place(t, node)
+    return init_params(specs, gen, place)
 
 
 def grow_cache(cfg, cache: dict, batch: int, max_len: int) -> dict:
     """A prefill cache (sized to the prompt) zero-padded at the end of
     every axis to the decode cache of ``max_len`` positions (JAX's
-    ``jnp.pad`` to ``init_cache``'s shapes)."""
-    dev = next(iter(cache.values())).device
+    ``jnp.pad`` to ``init_cache``'s shapes); a ``Sharded`` cache block by
+    block."""
+    first = next(iter(cache.values()))
+    if isinstance(first, Sharded):
+        n = first.counts()[1]
+
+        def key(t, r):
+            return tuple(r if d == 1 else 0 for d in range(len(t.shape)))
+        grown = [grow_cache(cfg, {k: v.blocks[key(v, r)]
+                                  for k, v in cache.items()},
+                            batch // n, max_len) for r in range(n)]
+        out = {}
+        for name, v in cache.items():
+            shape = list(grown[0][name].shape)
+            shape[1] *= n
+            out[name] = Sharded(v.sharding, shape, {
+                key(v, r): g[name] for r, g in enumerate(grown)})
+        return out
+    dev = first.device
     full = registry.get_model(cfg).init_cache(cfg, batch, max_len,
                                               device=dev)
     for name, small in cache.items():
@@ -213,7 +413,7 @@ def _prompt_len(cfg, inputs: dict) -> int:
 
 
 def generate(run, params: dict, inputs: dict, decode_len: int, *,
-             device=None, teacher: Optional[torch.Tensor] = None,
+             device=None, mesh=None, teacher: Optional[torch.Tensor] = None,
              keep_logits: bool = False) -> dict:
     """Prefill ``inputs`` (a prefill batch), grow the cache to
     ``prompt + decode_len`` positions, then decode ``decode_len`` steps:
@@ -223,13 +423,15 @@ def generate(run, params: dict, inputs: dict, decode_len: int, *,
     every step's; ``cache``; ``logits`` (prefill's, then each step's) if
     ``keep_logits``; and times: ``prefill_ms`` and ``decode_ms`` (one a
     step), from CUDA events on the card (``timer`` "cuda_events") or the
-    host clock on the CPU ("host_clock", not a device time)."""
+    host clock on the CPU ("host_clock", not a device time). Over
+    ``mesh`` (parameters placed by ``init_lm_params(mesh=)``) the steps
+    run sharded, timed on the mesh's first device."""
     cfg = run.model
-    dev = resolve_device(device)
+    dev = resolve_device(mesh.first if mesh is not None else device)
     B = next(iter(inputs.values())).shape[0]
     prompt = _prompt_len(cfg, inputs)
-    prefill = make_serve_setup(run, "prefill", dev)
-    decode = make_serve_setup(run, "decode", dev)
+    prefill = make_serve_setup(run, "prefill", dev, mesh=mesh)
+    decode = make_serve_setup(run, "decode", dev, mesh=mesh)
     cuda = dev.type == "cuda"
 
     def mark():

@@ -1,11 +1,15 @@
-"""LM training launcher: a fault-tolerant loop around the train step on
-one device (the port's counterpart of ``repro.launch.train``, with its
-flags).
+"""LM training launcher: a fault-tolerant loop around the sharded train
+step (the port's counterpart of ``repro.launch.train``, with its flags).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
-        --tiny --steps 50 --batch 8 --seq 128 [--device cpu]
+        --tiny --steps 50 --batch 8 --seq 128 [--model-parallel 2] \\
+        [--host-devices 4] [--device cpu]
 
-Runs on the card unless ``--device`` names another device.
+Runs on the card unless ``--device`` names another device. The mesh is
+the JAX launcher's, ``make_mesh_for(<devices>, --model-parallel)``, over
+every card (or the CPU), or over ``--host-devices N`` logical devices
+laid over them; ``"pod"`` in its axes makes the step multi-pod. A 1 × 1
+mesh computes the one-device step bit for bit.
 
 Fault tolerance, as the JAX launcher's:
   * a checkpoint every ``--checkpoint-every`` steps (atomic, with a
@@ -18,8 +22,8 @@ Fault tolerance, as the JAX launcher's:
   * SIGTERM/SIGINT (preemption) takes a final synchronous checkpoint and
     exits 0.
 
-LM sharding (ROADMAP.md, Queue A 7.2) is not ported: ``--model-parallel``
-above 1 raises.
+Checkpoints hold whole leaves, so a run saved on one mesh resumes on
+another.
 """
 from __future__ import annotations
 
@@ -36,6 +40,8 @@ from repro_torch.configs import ARCHS, tiny_variant
 from repro_torch.configs.base import RunConfig
 from repro_torch.data.pipeline import batch_at
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import Sharded, gather_tree
+from repro_torch.launch.mesh import logical_devices, make_mesh_for
 from repro_torch.launch.steps import init_train_state, make_train_setup
 from repro_torch.models.param import tree_leaves
 
@@ -62,12 +68,16 @@ def _state(params: dict, opt_state: dict) -> dict:
 
 
 def _load(params: dict, opt_state: dict, directory: str) -> int:
-    """The latest checkpoint copied into the live tensors; its step."""
+    """The latest checkpoint copied into the live tensors (block by block
+    where a leaf is sharded); its step."""
     live = _state(params, opt_state)
     saved, step = restore(directory, live)
     with torch.no_grad():
         for d, s in zip(tree_leaves(live), tree_leaves(saved)):
-            d.copy_(s)
+            if isinstance(d, Sharded):
+                d.assign_(s)
+            else:
+                d.copy_(s)
     return step
 
 
@@ -86,18 +96,22 @@ def main(argv=None) -> dict:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--host-devices", type=int, default=0,
+                    help="lay N logical devices over the cards (or the "
+                         "CPU) for the mesh")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            "--model-parallel > 1 needs LM sharding, which the port does "
-            "not have yet (ROADMAP.md, Queue A 7.2)")
 
     dev = resolve_device(args.device)
     run = build_run(args)
-    setup = make_train_setup(run, dev)
-    params, opt_state = init_train_state(run, run.seed, dev)
+    mesh = make_mesh_for(len(logical_devices(dev, args.host_devices)),
+                         args.model_parallel, device=dev,
+                         host_devices=args.host_devices)
+    print(f"[train] mesh {mesh.shape} over {len(mesh.distinct())} "
+          f"device(s)")
+    setup = make_train_setup(run, mesh=mesh)
+    params, opt_state = init_train_state(run, run.seed, mesh=mesh)
 
     start_step = 0
     if args.resume and latest_step(run.checkpoint_dir) is not None:
@@ -117,13 +131,14 @@ def main(argv=None) -> dict:
 
     def sync():
         if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+            for d in mesh.distinct():
+                torch.cuda.synchronize(d)
 
     try:
         t_last, last_logged = time.perf_counter(), start_step - 1
         for step in range(start_step, run.total_steps):
             batch = batch_at(run.model, run.seq_len, run.global_batch,
-                             step, run.seed, device=dev)
+                             step, run.seed, device=mesh.first)
             params, opt_state, metrics = setup.step_fn(params, opt_state,
                                                        batch, step)
             losses.append(metrics["loss"])
@@ -152,7 +167,8 @@ def main(argv=None) -> dict:
     finally:
         for s, h in handlers.items():
             signal.signal(s, h)
-    return {"params": params, "opt_state": opt_state,
+    return {"params": gather_tree(params),
+            "opt_state": gather_tree(opt_state), "mesh": mesh,
             "start_step": start_step,
             "losses": [float(v) for v in losses],
             "grad_norms": [float(v) for v in grad_norms]}

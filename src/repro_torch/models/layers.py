@@ -12,6 +12,13 @@ of the reference's arithmetic is kept.
 The paper's quantization plugs in through ``linear(..., q8=True)``:
 symmetric w8a8 fake-quant, as in the JAX package (the true-int8 K5 path
 is ``kernels.ops.q8_linear``, which the JAX LM does not call either).
+
+Over a mesh (``distributed.sharding.Rows``, installed by the sharded
+step) the model code runs once a row of the batch, on the row's device,
+and a weight cut over "model" stays a ``Sharded`` leaf in the row's view
+of the parameters: ``linear`` and the MoE's expert einsums then run block
+by block (``_per_block``), and ``whole`` gathers such a leaf where it is
+used otherwise. Without a mesh there is one row and both are plain.
 """
 from __future__ import annotations
 
@@ -21,19 +28,74 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.quantization import fake_quant
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import Sharded
 
-__all__ = ["DEFAULT_CHUNK", "grad_cast", "constrain_leading_dp",
+__all__ = ["DEFAULT_CHUNK", "grad_cast", "constrain_leading_dp", "whole",
+           "split_batch",
            "rms_norm", "layer_norm", "linear", "rope", "attention",
            "attention_decode", "mlp", "moe"]
 
 DEFAULT_CHUNK = 1024
 
 
-def constrain_leading_dp(x: torch.Tensor, *trailing) -> torch.Tensor:
-    """JAX's pins dim 0 to the data-parallel mesh axes (``moe`` calls it
-    on its dispatch tensors). On one device it does nothing, so nothing
-    here calls it; LM sharding is a later slice."""
-    return x
+def constrain_leading_dp(x: torch.Tensor, *trailing):
+    """``x`` placed with dim 0 over the data axes ("pod", "data") of the
+    running step's mesh, and ``trailing`` naming mesh axes of the next
+    dims, as the JAX package's: ``x`` itself without a mesh or a data
+    axis, or when dim 0 does not divide; a trailing axis the mesh lacks
+    or that does not divide its dim is dropped."""
+    mesh = sharding.rows().mesh
+    if mesh is None:
+        return x
+    dp = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    if not dp or x.shape[0] % sharding.axis_extent(mesh, dp):
+        return x
+    rest = list(trailing) + [None] * (x.dim() - 1 - len(trailing))
+    for i, r in enumerate(rest):
+        if r is not None and (r not in mesh.shape or
+                              x.shape[i + 1] % mesh.shape[r]):
+            rest[i] = None
+    return sharding.constrain(x, mesh, dp, *rest)
+
+
+def split_batch(batch: dict) -> list:
+    """A batch of whole tensors as one dict a running row, each leaf's
+    row slab on its row's device."""
+    rows = sharding.rows()
+    parts = {k: rows.split(v) for k, v in batch.items()}
+    return [{k: v[r] for k, v in parts.items()} for r in range(rows.n)]
+
+
+def whole(t):
+    """A parameter leaf as one tensor: a ``Sharded`` leaf gathered on the
+    running row's device; a tensor itself."""
+    if isinstance(t, Sharded):
+        return t.gather(sharding.rows().device())
+    return t
+
+
+def _per_block(x: torch.Tensor, w: Sharded, fn, x_dim, out_dim):
+    """``fn(x, w)`` run block by block of ``w``'s model cut, block b on
+    the running row's device of block b, the parts back on ``x``'s
+    device: concatenated along ``out_dim`` of the output, or (None: the
+    cut dim is contracted) summed in block order. ``x_dim``: the dim of
+    ``x`` that the cut dim pairs with, sliced alike (None: none)."""
+    rows = sharding.rows()
+    md = w.model_dim
+    m = w.counts()[md]
+    size = w.shape[md] // m
+    outs = []
+    for k in range(m):
+        dev = rows.device(k)
+        xk = x if x_dim is None else x.narrow(x_dim, k * size, size)
+        outs.append(fn(xk.to(dev), w.gather(dev, at=(md, k))).to(x.device))
+    if out_dim is not None:
+        return torch.cat(outs, out_dim)
+    y = outs[0]
+    for o in outs[1:]:
+        y = y + o
+    return y
 
 
 class _GradCast(torch.autograd.Function):
@@ -80,13 +142,25 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 def linear(x: torch.Tensor, w: torch.Tensor,
            b: Optional[torch.Tensor] = None, q8: bool = False):
     """x @ w (+ b); optional symmetric w8a8 fake-quant (per-tensor
-    activations, per-output-column weights)."""
-    if q8:
-        x = fake_quant(x, 8)
-        w = fake_quant(w, 8, axis=tuple(range(w.ndim - 1)))
-    y = x @ w
+    activations, per-output-column weights). A 2-D ``w`` cut over
+    "model" multiplies block by block: column-parallel where the output
+    dim is cut (the blocks' outputs concatenated), row-parallel where the
+    input dim is (the partial products summed on ``x``'s device)."""
+    if isinstance(w, Sharded):
+        if q8:
+            raise NotImplementedError(
+                "q8 linears over a mesh: the per-tensor activation scale "
+                "spans the rows (ROADMAP, Queue A 7.2)")
+        row_parallel = w.model_dim == 0
+        y = _per_block(x, w, torch.matmul, -1 if row_parallel else None,
+                       None if row_parallel else -1)
+    else:
+        if q8:
+            x = fake_quant(x, 8)
+            w = fake_quant(w, 8, axis=tuple(range(w.ndim - 1)))
+        y = x @ w
     if b is not None:
-        y = y + b.to(y.dtype)
+        y = y + whole(b).to(y.dtype)
     return y
 
 
@@ -278,48 +352,47 @@ def _dispatch(probs: torch.Tensor, k: int, cap: int):
     return idx, gate, order, sorted_e, pos, pos < cap
 
 
-def moe(params: dict, x: torch.Tensor, cfg):
-    """Top-k MoE with grouped capacity-based sort dispatch (the JAX
-    package's ``layers.moe``, step for step). x: (B, S, d) → (out, aux).
+def _einsum(eq: str, x: torch.Tensor, w) -> torch.Tensor:
+    """``torch.einsum(eq, x, w)``; a ``w`` cut over "model" runs block by
+    block (``_per_block``): the cut letter sliced in ``x`` where it
+    appears there, concatenated in the output where it appears there,
+    else summed."""
+    if not isinstance(w, Sharded):
+        return torch.einsum(eq, x, w)
+    ins, out = eq.split("->")
+    xs, ws = ins.split(",")
+    c = ws[w.model_dim]
+    return _per_block(x, w, lambda a, b: torch.einsum(eq, a, b),
+                      xs.index(c) if c in xs else None,
+                      out.index(c) if c in out else None)
 
-    Tokens fold into ``cfg.moe_groups`` groups and each group sorts its
-    (token, choice) pairs by expert into a (G, E, cap, d) buffer; pairs
-    past an expert's capacity are dropped (they land in a spare row that
-    is cut off, as JAX's ``mode="drop"`` write discards them).
-    """
-    B, S, d = x.shape
+
+def _moe_groups(params: dict, xg: torch.Tensor, cfg, cap: int):
+    """Dispatch, experts and combine of (G, Tg, d) token groups →
+    (out (G, Tg, d) in x's dtype, router probs (G, Tg, E), top-1 expert
+    (G, Tg)). The expert einsums run per block of a weight cut over
+    "experts" (or, re-placed by ``pspec``, over "expert_mlp")."""
+    G, Tg, d = xg.shape
     E, k = cfg.n_experts, cfg.top_k
-    T = B * S
-    G = cfg.moe_groups or 1
-    if T % G:
-        G = 1
-    Tg = T // G
-    cap = min(int(cfg.capacity_factor * Tg * k / E + 1), Tg)
-    dev = x.device
-    xg = x.reshape(G, Tg, d)
-
+    dev = xg.device
     logits = torch.einsum("gtd,de->gte", xg.float(),
                           params["w_router"].float())
     probs = torch.softmax(logits, -1)                   # (G, Tg, E)
     idx, gate, order, sorted_e, pos, keep = _dispatch(probs, k, cap)
 
-    # Switch-style load-balancing aux loss (global statistics).
-    density = F.one_hot(idx[..., 0], E).float().mean((0, 1))
-    aux = E * torch.sum(density * probs.mean((0, 1)))
-
     tok = order // k                                     # (G, Tg·k)
     safe_pos = torch.where(keep, pos, cap)
 
     gi = torch.arange(G, device=dev)[:, None].expand(G, Tg * k)
-    buf = torch.zeros((G, E, cap + 1, d), dtype=x.dtype, device=dev)
+    buf = torch.zeros((G, E, cap + 1, d), dtype=xg.dtype, device=dev)
     buf[gi, sorted_e, safe_pos] = torch.gather(
         xg, 1, tok[..., None].expand(G, Tg * k, d))
     buf = buf[:, :, :cap]
 
-    h1 = torch.einsum("gecd,edf->gecf", buf, params["w_gate"])
-    h2 = torch.einsum("gecd,edf->gecf", buf, params["w_up"])
-    h = F.silu(h1.float()).to(x.dtype) * h2
-    y_e = torch.einsum("gecf,efd->gecd", h, params["w_down"])
+    h1 = _einsum("gecd,edf->gecf", buf, params["w_gate"])
+    h2 = _einsum("gecd,edf->gecf", buf, params["w_up"])
+    h = F.silu(h1.float()).to(xg.dtype) * h2
+    y_e = _einsum("gecf,efd->gecd", h, params["w_down"])
 
     # a dropped pair reads a clamped row (JAX's gather clamps) times 0
     y_tok = y_e[gi, sorted_e, torch.clamp_max(safe_pos, cap - 1)]
@@ -329,4 +402,47 @@ def moe(params: dict, x: torch.Tensor, cfg):
     out.index_put_((gi, tok), y_tok.float() * w[..., None], accumulate=True)
     if "shared" in params:
         out = out + mlp(params["shared"], xg, cfg).float()
-    return out.reshape(B, S, d).to(x.dtype), aux
+    return out.to(xg.dtype), probs, idx[..., 0]
+
+
+def moe(params: dict, x, cfg):
+    """Top-k MoE with grouped capacity-based sort dispatch (the JAX
+    package's ``layers.moe``, step for step). x: (B, S, d), or the
+    running rows' slabs (a list) → (out alike, aux).
+
+    Tokens fold into ``cfg.moe_groups`` groups of the whole batch and
+    each group sorts its (token, choice) pairs by expert into a
+    (G, E, cap, d) buffer; pairs past an expert's capacity are dropped
+    (they land in a spare row that is cut off, as JAX's ``mode="drop"``
+    write discards them). Over rows: where each row holds whole groups
+    (G a multiple of the rows), each row dispatches its own; else row 0
+    dispatches every row's tokens in one sort (one group spans rows).
+    The load-balancing loss is taken over every row's tokens.
+    """
+    if isinstance(x, torch.Tensor):
+        outs, aux = moe(params, [x], cfg)
+        return outs[0], aux
+    rows = sharding.rows()
+    S, d = x[0].shape[1:]
+    E, k = cfg.n_experts, cfg.top_k
+    T = sum(t.shape[0] for t in x) * S
+    G = cfg.moe_groups or 1
+    if T % G:
+        G = 1
+    Tg = T // G
+    cap = min(int(cfg.capacity_factor * Tg * k / E + 1), Tg)
+    if G % len(x) == 0:
+        parts = rows.each(lambda p, t: _moe_groups(
+            p, t.reshape(G // len(x), Tg, d), cfg, cap), params, x)
+        outs = [o.reshape(t.shape) for (o, _, _), t in zip(parts, x)]
+    else:
+        whole_x = rows.join(x)
+        parts = rows.each(lambda p, t: _moe_groups(
+            p, t.reshape(G, Tg, d), cfg, cap), params, [whole_x])
+        outs = rows.split(parts[0][0].reshape(whole_x.shape))
+    probs = rows.join([p for _, p, _ in parts])
+    top1 = rows.join([t for _, _, t in parts])
+    # Switch-style load-balancing aux loss (global statistics).
+    density = F.one_hot(top1, E).float().mean((0, 1))
+    aux = E * torch.sum(density * probs.mean((0, 1)))
+    return outs, aux

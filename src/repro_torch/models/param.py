@@ -65,16 +65,18 @@ def tree_paths(tree, prefix=()):
         yield prefix, tree
 
 
-def init_params(specs: dict, gen: torch.Generator) -> dict:
+def init_params(specs: dict, gen: torch.Generator, place=None) -> dict:
     """Materialize a tree of ParamSpec (nested dicts) on ``gen``'s device
     (a ``torch.Generator("cuda")`` draws on the card), drawing leaf by
-    leaf in sorted-key order."""
+    leaf in sorted-key order. ``place(path, tensor)``, if given, stores
+    each leaf (a sharded placement) before the next is drawn."""
     out: dict = {}
     for path, spec in tree_paths(specs):
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = _materialize(spec, gen)
+        t = _materialize(spec, gen)
+        node[path[-1]] = t if place is None else place(path, t)
     return out
 
 

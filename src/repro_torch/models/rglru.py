@@ -17,6 +17,14 @@ where ``cfg.remat`` (the remainder layers without, as in the JAX
 package); the conv's gradients pass its fake-quant casts by the
 saturating straight-through estimator, so the network trains
 Winograd-aware, the paper's method.
+
+The batch runs as the running rows' slabs
+(``distributed.sharding.Rows``; one row without a mesh), as in
+``transformer``. The quantized conv's dynamic per-tensor scales are each
+the abs-max over every row's tensor: over a mesh the rows run that conv
+in lockstep (``_conv1d_rows``), each stage's scale taken over all rows
+before any row quantizes, so that a row computes what it computes in
+the whole batch.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import winograd as W
 from repro_torch.core.quantization import divide, fake_quant, qmax
+from repro_torch.distributed import sharding
 from repro_torch.models import layers as L
 from repro_torch.models.losses import chunked_ce
 from repro_torch.models.param import ParamSpec, unstack
@@ -117,7 +126,7 @@ def layer_params(params, cfg) -> list:
 
 def _conv1d(p, x, cfg):
     """Causal width-r depthwise temporal conv. x: (B, T, dr)."""
-    w, b = p["conv_w"], p["conv_b"]
+    w, b = L.whole(p["conv_w"]), L.whole(p["conv_b"])
     if cfg.use_winograd_conv and cfg.winograd is not None:
         spec = cfg.winograd
         mats = W.make_matrices(spec)
@@ -157,39 +166,70 @@ def _depthwise_wino_weights(w, spec, mats):
     return cast_dom(U)
 
 
-def _depthwise_wino_conv(x, U, spec, mats):
-    """The quantized depthwise 1-D Toom-Cook conv, causal. x: (N, T, C),
-    U: (C, n) → (N, T, C) in x's dtype. The transforms run in fp32 on
-    tiles cast in x's dtype, as the JAX package's float32 matrices
-    promote them."""
+def _fq_rows(ts: list, bits) -> list:
+    """``fake_quant`` of the rows' parts of one tensor with its one
+    dynamic per-tensor scale: the abs-max over every row's part."""
+    if bits is None or len(ts) == 1:
+        return [fake_quant(t, bits) for t in ts]
+    amax = ts[0].detach().abs().amax()
+    for t in ts[1:]:
+        amax = torch.maximum(amax, t.detach().abs().amax().to(amax.device))
+    scale = divide(torch.clamp_min(amax, 1e-12), qmax(bits))
+    return [fake_quant(t, bits, scale=scale.to(t.device)) for t in ts]
+
+
+def _depthwise_wino_conv_rows(xs, U, spec, mats):
+    """The quantized depthwise 1-D Toom-Cook conv, causal, of the rows'
+    slabs in lockstep. x: (N, T, C) a row, U: (C, n) → (N, T, C) a row
+    in x's dtype. The transforms run in fp32 on tiles cast in x's dtype,
+    as the JAX package's float32 matrices promote them."""
     q = spec.quant
-    N, T, C = x.shape
+    T, C = xs[0].shape[1:]
     m, r, n = spec.m, spec.r, spec.n
 
-    def mat(name):
-        return torch.as_tensor(getattr(mats, name), device=x.device)
+    def apply(name, ts):
+        return [W._apply(torch.as_tensor(getattr(mats, name),
+                                         device=t.device), t) for t in ts]
     lo, hi, nt, To = W._pad_amounts(T, m, r, "same", causal=True)
-    xp = F.pad(x, (0, 0, lo, hi))
-    tiles = W._extract_tiles_1d_axis(xp, m, n, axis=1)  # (N, nt, C, n)
-    tiles = fake_quant(tiles, q.act_bits).float()
+    tiles = [W._extract_tiles_1d_axis(F.pad(x, (0, 0, lo, hi)), m, n,
+                                      axis=1) for x in xs]  # (N, nt, C, n)
+    tiles = [t.float() for t in _fq_rows(tiles, q.act_bits)]
     if spec.changes_base:
-        V = W._apply(mat("CinvT"), tiles)
-        V = fake_quant(V, q.trans_bits)
-        V = W._apply(mat("BPT"), V)
+        V = _fq_rows(apply("CinvT", tiles), q.trans_bits)
+        V = apply("BPT", V)
     else:
-        V = W._apply(mat("BT"), tiles)
-    V = fake_quant(V, q.trans_bits)
-    H = V * U[None, None]                               # depthwise Hadamard
-    H = fake_quant(H, q.hadamard_bits)
+        V = apply("BT", tiles)
+    V = _fq_rows(V, q.trans_bits)
+    H = _fq_rows([v * U.to(v.device)[None, None] for v in V],
+                 q.hadamard_bits)                       # depthwise Hadamard
     if spec.changes_base:
-        Y = W._apply(mat("CinvT"), H)
-        Y = fake_quant(Y, q.trans_bits)
-        Y = W._apply(mat("APT"), Y)
+        Y = _fq_rows(apply("CinvT", H), q.trans_bits)
+        Y = apply("APT", Y)
     else:
-        Y = W._apply(mat("AT"), H)
+        Y = apply("AT", H)
     # (N, nt, C, m) → (N, nt, m, C) before flattening the tile grid
-    Y = Y.permute(0, 1, 3, 2).reshape(N, nt * m, C)[:, :To, :]
-    return Y.to(x.dtype)
+    return [y.permute(0, 1, 3, 2).reshape(y.shape[0], nt * m, C)[:, :To, :]
+            .to(x.dtype) for y, x in zip(Y, xs)]
+
+
+def _depthwise_wino_conv(x, U, spec, mats):
+    """``_depthwise_wino_conv_rows`` of one tensor."""
+    return _depthwise_wino_conv_rows([x], U, spec, mats)[0]
+
+
+def _conv1d_rows(p, us, cfg):
+    """``_conv1d`` of the running rows' slabs: row by row, except the
+    quantized conv over several rows, which runs them in lockstep."""
+    rows = sharding.rows()
+    if len(us) == 1 or not (cfg.use_winograd_conv and
+                            cfg.winograd is not None):
+        return rows.each(lambda lp, u: _conv1d(lp, u, cfg), p, us)
+    spec = cfg.winograd
+    mats = W.make_matrices(spec)
+    U, = rows.each(lambda lp, _: _depthwise_wino_weights(
+        L.whole(lp["conv_w"]), spec, mats), p, us[:1])
+    ys = _depthwise_wino_conv_rows(us, U, spec, mats)
+    return rows.each(lambda lp, y: y + L.whole(lp["conv_b"]), p, ys)
 
 
 # ---------------------------------------------------------------------------
@@ -228,8 +268,8 @@ def _associative_scan(a, b):
 
 
 def _gates(p, xf):
-    r = torch.sigmoid(xf @ p["w_a"].float() + p["b_a"].float())
-    i = torch.sigmoid(xf @ p["w_i"].float() + p["b_i"].float())
+    r = torch.sigmoid(xf @ L.whole(p["w_a"]).float() + p["b_a"].float())
+    i = torch.sigmoid(xf @ L.whole(p["w_i"]).float() + p["b_i"].float())
     lam = p["lam"].float()
     softplus = torch.logaddexp(lam, torch.zeros_like(lam))  # jax.nn's form
     log_a = -_RG_C * softplus * r                        # (…, dr), < 0
@@ -252,60 +292,85 @@ def _rg_lru_step(p, x, h_prev):
     return a * h_prev + gated
 
 
-def _rec_block(p, x, cfg):
-    q8 = cfg.quantize_linears
+def _rec_gate_u(p, x, cfg, q8):
+    """A recurrent block's gate branch and its pre-conv input, one row."""
     h = _apply_norm(p["ln_mix"], x, cfg)
     gate = L._gelu(L.linear(h, p["rec"]["w_y"], q8=q8).float()).to(x.dtype)
-    u = L.linear(h, p["rec"]["w_x"], q8=q8)
-    u = _conv1d(p["rec"], u, cfg)
-    u = _rg_lru(p["rec"], u)
-    y = L.linear((gate * u.to(gate.dtype)).to(x.dtype), p["rec"]["w_out"],
-                 q8=q8)
-    x = x + y
-    h = _apply_norm(p["ln_mlp"], x, cfg)
-    return x + L.mlp(p["mlp"], h, cfg)
+    return gate, L.linear(h, p["rec"]["w_x"], q8=q8)
 
 
-def _attn_block(p, x, cfg, positions):
-    h = _apply_norm(p["ln_mix"], x, cfg)
-    x = x + L.attention(p["attn"], h, cfg, window=cfg.window, causal=True,
-                        positions=positions)
-    h = _apply_norm(p["ln_mlp"], x, cfg)
-    return x + L.mlp(p["mlp"], h, cfg)
+def _rec_out(p, x, gate, h, cfg, q8):
+    """A recurrent block's output projection, residual and MLP, one row."""
+    x = x + L.linear((gate * h.to(gate.dtype)).to(x.dtype),
+                     p["rec"]["w_out"], q8=q8)
+    return x + L.mlp(p["mlp"], _apply_norm(p["ln_mlp"], x, cfg), cfg)
 
 
-def _run_blocks(blocks, x, cfg, positions):
+def _rec_block(p, xs, cfg):
+    rows = sharding.rows()
+    q8 = cfg.quantize_linears
+    gu = rows.each(lambda lp, x: _rec_gate_u(lp, x, cfg, q8), p, xs)
+    us = _conv1d_rows(p["rec"], [u for _, u in gu], cfg)
+    return rows.each(lambda lp, x, g, u: _rec_out(
+        lp, x, g, _rg_lru(lp["rec"], u), cfg, q8), p, xs,
+        [g for g, _ in gu], us)
+
+
+def _attn_block(p, xs, cfg, positions):
+    def one(lp, x):
+        h = _apply_norm(lp["ln_mix"], x, cfg)
+        x = x + L.attention(lp["attn"], h, cfg, window=cfg.window,
+                            causal=True, positions=positions.to(x.device))
+        h = _apply_norm(lp["ln_mlp"], x, cfg)
+        return x + L.mlp(lp["mlp"], h, cfg)
+    return sharding.rows().each(one, p, xs)
+
+
+def _run_blocks(blocks, xs, cfg, positions):
     for p, kind in blocks:
-        x = (_attn_block(p, x, cfg, positions) if kind == "attn"
-             else _rec_block(p, x, cfg))
-    return x
+        xs = (_attn_block(p, xs, cfg, positions) if kind == "attn"
+              else _rec_block(p, xs, cfg))
+    return xs
+
+
+def _embed_rows(params, tokens_rows, cfg):
+    return sharding.rows().each(
+        lambda e, t: L.whole(e)[t].to(cfg.dtype), params["embed"],
+        tokens_rows)
 
 
 def hidden_forward(params, batch, cfg):
-    x = params["embed"][batch["tokens"]].to(cfg.dtype)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    """The rows' final normed hiddens."""
+    rows = sharding.rows()
+    xs = _embed_rows(params, rows.split(batch["tokens"]), cfg)
+    positions = torch.arange(xs[0].shape[1], device=xs[0].device)[None, :]
     pat, n_full, _ = split_pattern(cfg)
     blocks = layer_params(params, cfg)
     k = len(pat)
     remat = cfg.remat and torch.is_grad_enabled()
     for g in range(n_full):
         group = blocks[g * k:(g + 1) * k]
-        x = (checkpoint(_run_blocks, group, x, cfg, positions,
-                        use_reentrant=False, preserve_rng_state=False)
-             if remat else _run_blocks(group, x, cfg, positions))
-    x = _run_blocks(blocks[n_full * k:], x, cfg, positions)
-    return _apply_norm(params["ln_f"], x, cfg)
+        xs = (checkpoint(_run_blocks, group, xs, cfg, positions,
+                         use_reentrant=False, preserve_rng_state=False)
+              if remat else _run_blocks(group, xs, cfg, positions))
+    xs = _run_blocks(blocks[n_full * k:], xs, cfg, positions)
+    return rows.each(lambda p, x: _apply_norm(p, x, cfg), params["ln_f"], xs)
+
+
+def _logits(params, xs):
+    """The rows' logits (tied embeddings, fp32), joined on row 0's."""
+    return sharding.rows().join(sharding.rows().each(
+        lambda w, x: L.linear(x, w).float(), params["embed"].T, xs))
 
 
 def forward(params, batch, cfg):
-    x = hidden_forward(params, batch, cfg)
-    logits = x @ params["embed"].T                      # tied embeddings
-    return logits.float(), 0.0
+    return _logits(params, hidden_forward(params, batch, cfg)), 0.0
 
 
 def loss_fn(params, batch, cfg):
-    x = hidden_forward(params, batch, cfg)
-    return chunked_ce(x, params["embed"].T, batch["labels"])
+    xs = hidden_forward(params, batch, cfg)
+    return chunked_ce(xs, params["embed"].T,
+                      sharding.rows().split(batch["labels"]))
 
 
 def prefill(params, batch, cfg, layers=None):
@@ -314,42 +379,54 @@ def prefill(params, batch, cfg, layers=None):
     Runs each block collecting its terminal state: windowed KV (laid out
     ring-buffer-compatibly), final RG-LRU state, conv tail. As in the JAX
     package, the projections here do not fake-quantize."""
+    rows = sharding.rows()
     tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = params["embed"][tokens].to(cfg.dtype)
-    positions = torch.arange(S, device=x.device)[None, :]
+    S = tokens.shape[1]
+    xs = _embed_rows(params, rows.split(tokens), cfg)
+    positions = torch.arange(S, device=xs[0].device)[None, :]
     w = min(S, cfg.window or S)
-    ks, vs, hs, convs = [], [], [], []
+    state = [{"k": [], "v": [], "h": [], "conv": []} for _ in xs]
 
     def ring_layout(kv):
         # logical position p lives at slot p % w (matches decode_step)
         return torch.roll(kv[:, -w:], S % w, dims=1)
 
-    for p, kind in layers or layer_params(params, cfg):
+    def attn(p, x, st):
         h = _apply_norm(p["ln_mix"], x, cfg)
-        if kind == "attn":
-            a, (k, v) = L.attention(p["attn"], h, cfg, window=cfg.window,
-                                    causal=True, positions=positions,
-                                    return_kv=True)
-            ks.append(ring_layout(k))
-            vs.append(ring_layout(v))
-            x = x + a
-        else:
-            gate = L._gelu(L.linear(h, p["rec"]["w_y"]).float()).to(x.dtype)
-            u = L.linear(h, p["rec"]["w_x"])
-            convs.append(u[:, -(cfg.conv_width - 1):])  # pre-conv tail
-            u = _conv1d(p["rec"], u, cfg)
-            hfull = _rg_lru(p["rec"], u)
-            hs.append(hfull[:, -1].float())
-            x = x + L.linear((gate * hfull.to(gate.dtype)).to(x.dtype),
-                             p["rec"]["w_out"])
-        h = _apply_norm(p["ln_mlp"], x, cfg)
-        x = x + L.mlp(p["mlp"], h, cfg)
+        a, (k, v) = L.attention(p["attn"], h, cfg, window=cfg.window,
+                                causal=True, positions=positions.to(x.device),
+                                return_kv=True)
+        st["k"].append(ring_layout(k))
+        st["v"].append(ring_layout(v))
+        return x + a
 
-    x = _apply_norm(params["ln_f"], x, cfg)
-    logits = (x[:, -1] @ params["embed"].T).float()
-    cache = {"k": torch.stack(ks), "v": torch.stack(vs),
-             "h": torch.stack(hs), "conv": torch.stack(convs)}
+    def pre(p, x, st):
+        gate, u = _rec_gate_u(p, x, cfg, False)
+        st["conv"].append(u[:, -(cfg.conv_width - 1):])  # pre-conv tail
+        return gate, u
+
+    def post(p, x, st, gate, u):
+        hfull = _rg_lru(p["rec"], u)
+        st["h"].append(hfull[:, -1].float())
+        return x + L.linear((gate * hfull.to(gate.dtype)).to(x.dtype),
+                            p["rec"]["w_out"])
+
+    def mlp(p, x):
+        return x + L.mlp(p["mlp"], _apply_norm(p["ln_mlp"], x, cfg), cfg)
+
+    for p, kind in layers or layer_params(params, cfg):
+        if kind == "attn":
+            xs = rows.each(attn, p, xs, state)
+        else:
+            gu = rows.each(pre, p, xs, state)
+            us = _conv1d_rows(p["rec"], [u for _, u in gu], cfg)
+            xs = rows.each(post, p, xs, state, [g for g, _ in gu], us)
+        xs = rows.each(mlp, p, xs)
+
+    xs = rows.each(lambda p, x: _apply_norm(p, x, cfg), params["ln_f"], xs)
+    logits = _logits(params, [x[:, -1] for x in xs])
+    cache = {k: rows.stitch([torch.stack(st[k]) for st in state], 1)
+             for k in ("k", "v", "h", "conv")}
     return cache, logits
 
 
@@ -377,35 +454,41 @@ def init_cache(cfg, batch: int, max_len: int, device=None):
 def decode_step(params, cache, tokens, pos, cfg, layers=None):
     """One-token decode, the cache written in place. Window attention
     uses a ring-buffer KV cache; the conv runs direct on its tail."""
-    x = params["embed"][tokens].to(cfg.dtype)           # (B, 1, d)
-    kv_len = cache["k"].shape[2]
-    ring_pos = pos % kv_len
-    ai = ri = 0
-    for p, kind in layers or layer_params(params, cfg):
-        hn = _apply_norm(p["ln_mix"], x, cfg)
-        if kind == "attn":
-            # The ring buffer bounds the window; once full, every slot is
-            # valid.
-            a, _ = L.attention_decode(
-                p["attn"], hn, {"k": cache["k"][ai], "v": cache["v"][ai]},
-                ring_pos, cfg, window=None, rope_pos=pos,
-                mask_pos=torch.clamp_max(pos, kv_len - 1))
-            x = x + a
-            ai += 1
-        else:
-            gate = L._gelu(L.linear(hn, p["rec"]["w_y"]).float()).to(x.dtype)
-            u = L.linear(hn, p["rec"]["w_x"])           # (B, 1, dr)
-            win = torch.cat([cache["conv"][ri], u], dim=1)   # (B, r, dr)
-            y = torch.einsum("brd,rd->bd", win, p["rec"]["conv_w"]) + \
-                p["rec"]["conv_b"]
-            h = _rg_lru_step(p["rec"], y, cache["h"][ri])
-            cache["h"][ri] = h
-            cache["conv"][ri] = win[:, 1:]
-            x = x + L.linear((gate[:, 0] * h.to(gate.dtype)).to(
-                x.dtype)[:, None], p["rec"]["w_out"])
-            ri += 1
-        hn = _apply_norm(p["ln_mlp"], x, cfg)
-        x = x + L.mlp(p["mlp"], hn, cfg)
-    x = _apply_norm(params["ln_f"], x, cfg)
-    logits = (x @ params["embed"].T)[:, 0]
-    return logits.float(), cache
+    rows = sharding.rows()
+    blocks = layers or layer_params(params, cfg)
+
+    def row(lps, x, c, pos):
+        kv_len = c["k"].shape[2]
+        ring_pos = pos % kv_len
+        ai = ri = 0
+        for p, kind in lps:
+            if kind == "attn":
+                hn = _apply_norm(p["ln_mix"], x, cfg)
+                # The ring buffer bounds the window; once full, every slot
+                # is valid.
+                a, _ = L.attention_decode(
+                    p["attn"], hn, {"k": c["k"][ai], "v": c["v"][ai]},
+                    ring_pos, cfg, window=None, rope_pos=pos,
+                    mask_pos=torch.clamp_max(pos, kv_len - 1))
+                x = x + a
+                ai += 1
+            else:
+                gate, u = _rec_gate_u(p, x, cfg, False)     # (B, 1, dr)
+                win = torch.cat([c["conv"][ri], u], dim=1)  # (B, r, dr)
+                y = torch.einsum("brd,rd->bd", win,
+                                 L.whole(p["rec"]["conv_w"])) + \
+                    L.whole(p["rec"]["conv_b"])
+                h = _rg_lru_step(p["rec"], y, c["h"][ri])
+                c["h"][ri] = h
+                c["conv"][ri] = win[:, 1:]
+                x = x + L.linear((gate[:, 0] * h.to(gate.dtype)).to(
+                    x.dtype)[:, None], p["rec"]["w_out"])
+                ri += 1
+            hn = _apply_norm(p["ln_mlp"], x, cfg)
+            x = x + L.mlp(p["mlp"], hn, cfg)
+        return x
+
+    xs = _embed_rows(params, rows.split(tokens), cfg)   # (B, 1, d)
+    xs = rows.each(row, blocks, xs, rows.cache_rows(cache), rows.split(pos))
+    xs = rows.each(lambda p, x: _apply_norm(p, x, cfg), params["ln_f"], xs)
+    return _logits(params, [x[:, 0] for x in xs]), cache

@@ -10,7 +10,9 @@ across chunks carrying S); decode is one O(1) state update.
 Data-dependent pieces follow the Finch paper: ddlerp token-shift mixing
 with low-rank adapters, and w_t from a LoRA on the shifted mix. Channel
 mix is the RWKV squared-ReLU MLP with token shift. Training: ``loss_fn``,
-each layer under activation checkpointing where ``cfg.remat``.
+each layer under activation checkpointing where ``cfg.remat``. The batch
+runs as the running rows' slabs (``distributed.sharding.Rows``; one row
+without a mesh); every term is row-local.
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import sharding
+from repro_torch.models import layers as L
 from repro_torch.models.losses import chunked_ce
 from repro_torch.models.param import ParamSpec, unstack
 from repro_torch.models.transformer import _apply_norm, _norm_spec
@@ -165,10 +169,10 @@ def _time_mix(p, x, cfg, last=None, state0=None):
     xx = _shift(x, last)
     mixed = _ddlerp(p, x.float(), xx.float())
     mr, mk, mv, mw, mg = (mixed[:, :, i] for i in range(5))
-    r = (mr.to(dt) @ p["w_r"]).reshape(B, T, H, dh)
-    k = (mk.to(dt) @ p["w_k"]).reshape(B, T, H, dh)
-    v = (mv.to(dt) @ p["w_v"]).reshape(B, T, H, dh)
-    g = F.silu((mg.to(dt) @ p["w_g"]).float())
+    r = L.linear(mr.to(dt), p["w_r"]).reshape(B, T, H, dh)
+    k = L.linear(mk.to(dt), p["w_k"]).reshape(B, T, H, dh)
+    v = L.linear(mv.to(dt), p["w_v"]).reshape(B, T, H, dh)
+    g = F.silu(L.linear(mg.to(dt), p["w_g"]).float())
     lw = torch.tanh(torch.einsum("btd,dr->btr", mw, p["lora_A"][3].float())
                     ) @ p["lora_B"][3].float()
     # Clamp the decay rate (as the JAX package does): the chunked form's
@@ -183,7 +187,7 @@ def _time_mix(p, x, cfg, last=None, state0=None):
     var = out.var(-1, keepdim=True, unbiased=False)
     o = (out - mu) * torch.rsqrt(var + 1e-5)
     o = o.reshape(B, T, d) * p["ln_x"][None, None]
-    o = (o * g).to(dt) @ p["w_o"]
+    o = L.linear((o * g).to(dt), p["w_o"])
     return o, (x[:, -1], S)
 
 
@@ -191,10 +195,10 @@ def _channel_mix(p, x, cfg, last=None):
     xx = _shift(x, last)
     xk = x + (xx - x) * p["mu_k"][None, None].to(x.dtype)
     xr = x + (xx - x) * p["mu_r"][None, None].to(x.dtype)
-    k = torch.square(torch.relu((xk @ p["w_k"]).float()))
-    kv = k.to(cfg.dtype) @ p["w_v"]
-    return torch.sigmoid((xr @ p["w_r"]).float()).to(cfg.dtype) * kv, \
-        x[:, -1]
+    k = torch.square(torch.relu(L.linear(xk, p["w_k"]).float()))
+    kv = L.linear(k.to(cfg.dtype), p["w_v"])
+    return torch.sigmoid(L.linear(xr, p["w_r"]).float()).to(cfg.dtype) * \
+        kv, x[:, -1]
 
 
 def _layer(lp, h, cfg, S=None, tml=None, cml=None):
@@ -207,8 +211,9 @@ def _layer(lp, h, cfg, S=None, tml=None, cml=None):
     return h + o, (S, tm_last, cm_last)
 
 
-def _layer_out(lp, h, cfg):
-    return _layer(lp, h, cfg)[0]
+def _layer_rows(lp, xs, cfg):
+    """One block over the rows' slabs (no state kept)."""
+    return sharding.rows().each(lambda p, h: _layer(p, h, cfg)[0], lp, xs)
 
 
 def layer_params(params, cfg) -> list:
@@ -217,42 +222,62 @@ def layer_params(params, cfg) -> list:
     return unstack(params["blocks"])
 
 
+def _embed_rows(params, tokens):
+    rows = sharding.rows()
+    return rows.each(lambda e, t: L.whole(e)[t], params["embed"],
+                     rows.split(tokens))
+
+
 def hidden_forward(params, batch, cfg, collect_state: bool = False,
                    layers=None):
-    x = params["embed"][batch["tokens"]].to(cfg.dtype)
-    states = []
+    """→ (the rows' final normed hiddens, per-row (S, tm_last, cm_last)
+    stacks over the layers, or None)."""
+    rows = sharding.rows()
+    xs = [x.to(cfg.dtype) for x in _embed_rows(params, batch["tokens"])]
+    states = [[] for _ in xs]
     remat = cfg.remat and not collect_state and torch.is_grad_enabled()
     for lp in layers or layer_params(params, cfg):
         if remat:
-            x = checkpoint(_layer_out, lp, x, cfg, use_reentrant=False,
-                           preserve_rng_state=False)
-            continue
-        x, st = _layer(lp, x, cfg)
-        if collect_state:
-            states.append(st)
-    x = _apply_norm(params["ln_f"], x, cfg)
+            xs = checkpoint(_layer_rows, lp, xs, cfg, use_reentrant=False,
+                            preserve_rng_state=False)
+        elif collect_state:
+            out = rows.each(lambda p, h: _layer(p, h, cfg), lp, xs)
+            xs = [o[0] for o in out]
+            for st, o in zip(states, out):
+                st.append(o[1])
+        else:
+            xs = _layer_rows(lp, xs, cfg)
+    xs = rows.each(lambda p, x: _apply_norm(p, x, cfg), params["ln_f"], xs)
     if not collect_state:
-        return x, None
-    return x, tuple(torch.stack(s) for s in zip(*states))
+        return xs, None
+    return xs, [tuple(torch.stack(s) for s in zip(*st)) for st in states]
+
+
+def _logits(params, xs):
+    return sharding.rows().join(sharding.rows().each(
+        lambda w, x: L.linear(x, w).float(), params["unembed"], xs))
 
 
 def forward(params, batch, cfg):
-    x, _ = hidden_forward(params, batch, cfg)
-    return (x @ params["unembed"]).float(), 0.0
+    xs, _ = hidden_forward(params, batch, cfg)
+    return _logits(params, xs), 0.0
 
 
 def loss_fn(params, batch, cfg):
-    x, _ = hidden_forward(params, batch, cfg)
-    return chunked_ce(x, params["unembed"], batch["labels"])
+    xs, _ = hidden_forward(params, batch, cfg)
+    return chunked_ce(xs, params["unembed"],
+                      sharding.rows().split(batch["labels"]))
 
 
 def prefill(params, batch, cfg, layers=None):
     """Prompt → (O(1) decode cache, last-token logits). The prompt length
     must be a multiple of the time-mix chunk (8)."""
-    x, (S, tml, cml) = hidden_forward(params, batch, cfg,
-                                      collect_state=True, layers=layers)
-    logits = (x[:, -1] @ params["unembed"]).float()
-    return {"S": S, "tm_last": tml, "cm_last": cml}, logits
+    xs, states = hidden_forward(params, batch, cfg, collect_state=True,
+                                layers=layers)
+    rows = sharding.rows()
+    cache = {name: rows.stitch([st[i] for st in states], 1)
+             for i, name in enumerate(("S", "tm_last", "cm_last"))}
+    return cache, _logits(params, [x[:, -1] for x in xs])
 
 
 # ---------------------------------------------------------------------------
@@ -275,13 +300,18 @@ def init_cache(cfg, batch: int, max_len: int, device=None):
 
 def decode_step(params, cache, tokens, pos, cfg, layers=None):
     """One-token decode, the cache written in place."""
-    x = params["embed"][tokens].to(cfg.dtype)           # (B, 1, d)
-    for i, lp in enumerate(layers or layer_params(params, cfg)):
-        x, (S, tml, cml) = _layer(lp, x, cfg, cache["S"][i],
-                                  cache["tm_last"][i], cache["cm_last"][i])
-        cache["S"][i] = S
-        cache["tm_last"][i] = tml
-        cache["cm_last"][i] = cml
-    x = _apply_norm(params["ln_f"], x, cfg)
-    logits = (x @ params["unembed"])[:, 0]
-    return logits.float(), cache
+    rows = sharding.rows()
+    blocks = layers or layer_params(params, cfg)
+
+    def row(lps, x, c):
+        for i, lp in enumerate(lps):
+            x, (S, tml, cml) = _layer(lp, x, cfg, c["S"][i],
+                                      c["tm_last"][i], c["cm_last"][i])
+            c["S"][i] = S
+            c["tm_last"][i] = tml
+            c["cm_last"][i] = cml
+        return x
+    xs = [x.to(cfg.dtype) for x in _embed_rows(params, tokens)]  # (B, 1, d)
+    xs = rows.each(row, blocks, xs, rows.cache_rows(cache))
+    xs = rows.each(lambda p, x: _apply_norm(p, x, cfg), params["ln_f"], xs)
+    return _logits(params, [x[:, 0] for x in xs]), cache

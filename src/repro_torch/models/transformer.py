@@ -13,12 +13,20 @@ routed experts; qwen2-moe, kimi-k2); stub modality frontends
 encoder's frame targets, the MoE's load-balancing term), with each layer
 under activation checkpointing where ``cfg.remat`` (JAX's
 ``jax.checkpoint`` of its scan body).
+
+Every function runs the batch as the running rows' slabs
+(``distributed.sharding.Rows``; one row without a mesh): a layer's
+row-local work row by row, its MoE over all rows at once (``layers.moe``)
+and a checkpointed layer over all rows, so that its recomputation runs
+them too. The entry points take and return whole tensors; a decode cache
+over a mesh is ``Sharded`` over its batch dim.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import sharding
 from repro_torch.models import layers as L
 from repro_torch.models.losses import chunked_ce
 from repro_torch.models.param import ParamSpec, unstack
@@ -137,21 +145,29 @@ def param_specs(cfg) -> dict:
     return specs
 
 
-def _block(cfg, p, x, positions, collect_kv: bool = False):
-    h = _apply_norm(p["ln_attn"], x, cfg)
-    a = L.attention(p["attn"], h, cfg, window=cfg.window or None,
-                    causal=not cfg.is_encoder, positions=positions,
-                    return_kv=collect_kv)
-    kv = None
-    if collect_kv:
-        a, kv = a
-    x = x + a
-    h = _apply_norm(p["ln_mlp"], x, cfg)
+def _block(cfg, p, xs, positions, collect_kv: bool = False):
+    """One layer over the rows' slabs ``xs`` → (xs, aux, per-row kv)."""
+    rows = sharding.rows()
+
+    def mix(lp, x):
+        h = _apply_norm(lp["ln_attn"], x, cfg)
+        a = L.attention(lp["attn"], h, cfg, window=cfg.window or None,
+                        causal=not cfg.is_encoder,
+                        positions=positions.to(x.device),
+                        return_kv=collect_kv)
+        kv = None
+        if collect_kv:
+            a, kv = a
+        x = x + a
+        return x, _apply_norm(lp["ln_mlp"], x, cfg), kv
+    out = rows.each(mix, p, xs)
+    xs, hs = [o[0] for o in out], [o[1] for o in out]
     if cfg.n_experts:
-        y, aux = L.moe(p["moe"], h, cfg)
+        ys, aux = L.moe(p["moe"], hs, cfg)
     else:
-        y, aux = L.mlp(p["mlp"], h, cfg), 0.0
-    return x + y, aux, kv
+        ys, aux = rows.each(lambda lp, h: L.mlp(lp["mlp"], h, cfg), p,
+                            hs), 0.0
+    return [x + y for x, y in zip(xs, ys)], aux, [o[2] for o in out]
 
 
 def _frontend(feats: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -161,14 +177,14 @@ def _frontend(feats: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _embed_inputs(params, batch, cfg):
-    """Token / frame / patch embedding (stub frontends)."""
+    """Token / frame / patch embedding (stub frontends) of one row."""
     if cfg.input_mode == "tokens":
-        x = params["embed"][batch["tokens"]]
+        x = L.whole(params["embed"])[batch["tokens"]]
     elif cfg.input_mode == "frames":
         x = _frontend(batch["frames"], params["frontend_proj"])
     elif cfg.input_mode == "patches+tokens":
         pre = _frontend(batch["patches"], params["frontend_proj"])
-        tok = params["embed"][batch["tokens"]]
+        tok = L.whole(params["embed"])[batch["tokens"]]
         x = torch.cat([pre.to(tok.dtype), tok], dim=1)
     else:
         raise ValueError(cfg.input_mode)
@@ -183,29 +199,41 @@ def layer_params(params: dict, cfg) -> list:
     return unstack(params["blocks"])
 
 
+def _embed_rows(params, batch, cfg):
+    """The rows' embedded slabs and the positions (1, S)."""
+    rows = sharding.rows()
+    front = {k: params[k] for k in ("embed", "frontend_proj") if k in params}
+    out = rows.each(lambda p, b: _embed_inputs(p, b, cfg), front,
+                    L.split_batch(batch))
+    return [o[0] for o in out], out[0][1]
+
+
 def hidden_forward(params: dict, batch: dict, cfg,
                    collect_kv: bool = False, layers=None):
-    """Run the block stack → (final normed hiddens, aux, kv-or-None);
-    kv = (k, v), each (L, B, S, Hkv, dh). ``layers``: ``layer_params``
-    of ``params``, if the caller holds it."""
-    x, positions = _embed_inputs(params, batch, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    ks, vs = [], []
+    """Run the block stack → (the rows' final normed hiddens, aux,
+    per-row kv-or-None); a row's kv = (k, v), each (L, B_r, S, Hkv, dh).
+    ``layers``: ``layer_params`` of ``params``, if the caller holds it."""
+    rows = sharding.rows()
+    xs, positions = _embed_rows(params, batch, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=xs[0].device)
+    kvs = [([], []) for _ in xs]
     remat = cfg.remat and not collect_kv and torch.is_grad_enabled()
     for lp in layers or layer_params(params, cfg):
         if remat:
-            x, a, kv = checkpoint(_block, cfg, lp, x, positions,
-                                  use_reentrant=False,
-                                  preserve_rng_state=False)
+            xs, a, kv = checkpoint(_block, cfg, lp, xs, positions,
+                                   collect_kv, use_reentrant=False,
+                                   preserve_rng_state=False)
         else:
-            x, a, kv = _block(cfg, lp, x, positions, collect_kv)
+            xs, a, kv = _block(cfg, lp, xs, positions, collect_kv)
         aux = aux + a
         if collect_kv:
-            ks.append(kv[0])
-            vs.append(kv[1])
-    x = _apply_norm(params["ln_f"], x, cfg)
-    kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
-    return x, aux, kvs
+            for (ks, vs), (k, v) in zip(kvs, kv):
+                ks.append(k)
+                vs.append(v)
+    xs = rows.each(lambda p, x: _apply_norm(p, x, cfg), params["ln_f"], xs)
+    if not collect_kv:
+        return xs, aux, None
+    return xs, aux, [(torch.stack(ks), torch.stack(vs)) for ks, vs in kvs]
 
 
 def _unembed_matrix(params, cfg):
@@ -216,31 +244,39 @@ def _unembed_matrix(params, cfg):
     return params["unembed"]
 
 
+def _logits(params, xs, cfg):
+    """The rows' logits (fp32), joined on row 0's device."""
+    return sharding.rows().join(sharding.rows().each(
+        lambda w, x: L.linear(x, w).float(), _unembed_matrix(params, cfg),
+        xs))
+
+
 def forward(params: dict, batch: dict, cfg):
     """→ (logits (B, S_out, vocab) fp32, aux). Builds the full logits:
     small-scale use (checks, the encoder)."""
-    x, aux, _ = hidden_forward(params, batch, cfg)
-    logits = x @ _unembed_matrix(params, cfg)
-    return logits.float(), aux
+    xs, aux, _ = hidden_forward(params, batch, cfg)
+    return _logits(params, xs, cfg), aux
 
 
 def loss_fn(params: dict, batch: dict, cfg) -> torch.Tensor:
     """Next-token (decoder) or frame-target (encoder) chunked CE, on the
     text positions of a VLM batch; plus 0.01 × the MoE's aux loss."""
-    x, aux, _ = hidden_forward(params, batch, cfg)
-    labels = batch["labels"]
-    if cfg.input_mode == "patches+tokens":
-        x = x[:, -labels.shape[1]:, :]            # loss on text positions
-    nll = chunked_ce(x, _unembed_matrix(params, cfg), labels)
+    xs, aux, _ = hidden_forward(params, batch, cfg)
+    labels = sharding.rows().split(batch["labels"])
+    if cfg.input_mode == "patches+tokens":          # loss on text positions
+        xs = [x[:, -lab.shape[1]:, :] for x, lab in zip(xs, labels)]
+    nll = chunked_ce(xs, _unembed_matrix(params, cfg), labels)
     return nll + 0.01 * aux
 
 
 def prefill(params: dict, batch: dict, cfg, layers=None):
     """Process a full prompt → (kv cache (L,B,S,Hkv,dh), last logits)."""
-    x, _, (k, v) = hidden_forward(params, batch, cfg, collect_kv=True,
-                                  layers=layers)
-    logits = (x[:, -1] @ _unembed_matrix(params, cfg)).float()
-    return {"k": k, "v": v}, logits
+    xs, _, kv = hidden_forward(params, batch, cfg, collect_kv=True,
+                               layers=layers)
+    logits = _logits(params, [x[:, -1] for x in xs], cfg)
+    rows = sharding.rows()
+    return {"k": rows.stitch([k for k, _ in kv], 1),
+            "v": rows.stitch([v for _, v in kv], 1)}, logits
 
 
 # ---------------------------------------------------------------------------
@@ -260,19 +296,25 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
 
     Returns (logits (B, vocab) fp32, cache); the cache is written in
     place (JAX's decode step donates it)."""
-    x = params["embed"][tokens].to(cfg.dtype)            # (B, 1, d)
+    rows = sharding.rows()
+    caches = rows.cache_rows(cache)
+    poss = rows.split(pos)
+    xs = rows.each(lambda p, t: L.whole(p)[t].to(cfg.dtype),
+                   params["embed"], rows.split(tokens))      # (B, 1, d)
     for i, lp in enumerate(layers or layer_params(params, cfg)):
-        hn = _apply_norm(lp["ln_attn"], x, cfg)
-        a, _ = L.attention_decode(lp["attn"], hn,
-                                  {"k": cache["k"][i], "v": cache["v"][i]},
-                                  pos, cfg, window=cfg.window or None)
-        x = x + a
-        hn = _apply_norm(lp["ln_mlp"], x, cfg)
+        def mix(p, x, c, ps):
+            hn = _apply_norm(p["ln_attn"], x, cfg)
+            a, _ = L.attention_decode(p["attn"], hn,
+                                      {"k": c["k"][i], "v": c["v"][i]},
+                                      ps, cfg, window=cfg.window or None)
+            x = x + a
+            return x, _apply_norm(p["ln_mlp"], x, cfg)
+        out = rows.each(mix, lp, xs, caches, poss)
+        xs, hs = [o[0] for o in out], [o[1] for o in out]
         if cfg.n_experts:
-            y, _ = L.moe(lp["moe"], hn, cfg)
+            ys, _ = L.moe(lp["moe"], hs, cfg)
         else:
-            y = L.mlp(lp["mlp"], hn, cfg)
-        x = x + y
-    x = _apply_norm(params["ln_f"], x, cfg)
-    logits = x @ _unembed_matrix(params, cfg)
-    return logits[:, 0].float(), cache
+            ys = rows.each(lambda p, h: L.mlp(p["mlp"], h, cfg), lp, hs)
+        xs = [x + y for x, y in zip(xs, ys)]
+    xs = rows.each(lambda p, x: _apply_norm(p, x, cfg), params["ln_f"], xs)
+    return _logits(params, [x[:, 0] for x in xs], cfg), cache

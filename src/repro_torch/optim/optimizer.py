@@ -14,6 +14,10 @@ step then holds no second copy of the parameters and moments.
 ``adamw_update`` is the functional form of the JAX version, the same
 update on copies. Every quantity stays a tensor on the parameters'
 device, so a step never waits on the host.
+
+A leaf may be ``distributed.sharding.Sharded``: the update then runs
+block by block where each block lives, and ``global_norm`` sums every
+distinct block once (on the first block's device).
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.models.param import tree_leaves, tree_map
+from repro_torch.distributed.sharding import map_blocks, tree_blocks
 
 __all__ = ["adamw_init", "adamw_update", "adamw_update_", "cosine_schedule",
            "global_norm"]
@@ -39,14 +43,16 @@ def adamw_init(params: dict, moment_dtype: torch.dtype = torch.float32
     count."""
     def zeros(p):
         return torch.zeros_like(p, dtype=moment_dtype)
-    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
+    return {"m": map_blocks(zeros, params), "v": map_blocks(zeros, params),
             "count": torch.zeros((), dtype=torch.int32,
-                                 device=tree_leaves(params)[0].device)}
+                                 device=tree_blocks(params)[0].device)}
 
 
 def global_norm(tree: dict) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for g in tree_leaves(tree)))
+    blocks = tree_blocks(tree)
+    home = blocks[0].device
+    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))).to(
+        home) for g in blocks))
 
 
 def _leaf_update(g, m, v, p, *, lr, b1, b2, eps, weight_decay, c1, c2):
@@ -76,16 +82,19 @@ def adamw_update_(grads: dict, opt_state: dict, params: dict, *, lr,
         scale = torch.clamp(grad_clip / torch.clamp_min(gnorm, 1e-9),
                             max=1.0)
     c1, c2 = 1 - b1 ** count, 1 - b2 ** count
-    for p, g, m, v in zip(*map(tree_leaves, (params, grads, opt_state["m"],
+    for p, g, m, v in zip(*map(tree_blocks, (params, grads, opt_state["m"],
                                              opt_state["v"])), strict=True):
+        dev = p.device
+        sc = None if scale is None else scale.to(dev)
+        d1, d2 = c1.to(dev), c2.to(dev)
         n = p.shape[0] if p.dim() else 1
         rows = max(1, _SLICE * n // max(1, p.numel()))
         for i in range(0, n, rows):
             sl = slice(i, i + rows) if p.dim() else ...
-            gs = g[sl] if scale is None else g[sl] * scale.to(g.dtype)
+            gs = g[sl] if sc is None else g[sl] * sc.to(g.dtype)
             out = _leaf_update(gs, m[sl], v[sl], p[sl], lr=lr, b1=b1,
                                b2=b2, eps=eps, weight_decay=weight_decay,
-                               c1=c1, c2=c2)
+                               c1=d1, c2=d2)
             for dst, src in zip((p, m, v), out):
                 dst[sl] = src
     opt_state["count"].copy_(count)
@@ -97,8 +106,8 @@ def adamw_update(grads: dict, opt_state: dict, params: dict, **kw
                  ) -> tuple[dict, dict, dict]:
     """``adamw_update_`` (same keywords) on copies of ``params`` and
     ``opt_state``. Returns (new_params, new_opt_state, metrics)."""
-    params, opt_state = tree_map(torch.clone, params), \
-        tree_map(torch.clone, opt_state)
+    params, opt_state = map_blocks(torch.clone, params), \
+        map_blocks(torch.clone, opt_state)
     return params, opt_state, adamw_update_(grads, opt_state, params, **kw)
 
 

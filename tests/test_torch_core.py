@@ -91,7 +91,9 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.models.layers", "repro_torch.models.transformer",
             "repro_torch.models.rglru", "repro_torch.models.rwkv6",
             "repro_torch.models.registry", "repro_torch.launch.steps",
-            "repro_torch.models.losses", "repro_torch.launch.train"
+            "repro_torch.models.losses", "repro_torch.launch.train",
+            "repro_torch.distributed.compression",
+            "repro_torch.distributed.sharding"
             } <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -601,8 +601,6 @@ def test_example_refuses_what_it_cannot_serve():
     mod = _example()
     with pytest.raises(SystemExit, match="encoder-only"):
         mod.main(["--arch", "hubert-xlarge", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="LM sharding"):
-        mod.main(["--model-parallel", "2", "--device", "cpu"])
     with pytest.raises(ValueError, match="multiple of the chunk"):
         mod.main(["--arch", "rwkv6-7b", "--prompt-len", "20",
                   "--device", "cpu"])

@@ -471,16 +471,15 @@ def test_port_checkpoint_restores_through_jax_with_its_train_state_keys(
 
 def test_train_entry_points_refuse_what_they_cannot_do():
     """No card: the launcher's default device raises, as does a train
-    step built for the card; ``--model-parallel`` above 1 raises (LM
-    sharding is not ported); a step refuses a batch off its device."""
+    step built for the card; a step refuses a batch off its device, and
+    a one-device step refuses a state placed over a mesh (and a mesh
+    step a state that is not)."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ttrain.main(["--arch", "llama3.2-1b", "--tiny", "--steps", "1"])
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tsteps.make_train_setup(RunConfig(
                 model=tiny_variant(ARCHS["llama3.2-1b"])))
-    with pytest.raises(NotImplementedError, match="LM sharding"):
-        ttrain.main(_TRAIN + ["--model-parallel", "2"])
     cfg = tiny_variant(ARCHS["llama3.2-1b"])
     run = RunConfig(model=cfg, seq_len=8, global_batch=2, total_steps=2,
                     warmup_steps=1)
@@ -492,6 +491,14 @@ def test_train_entry_points_refuse_what_they_cannot_do():
         step(params, opt, {k: v.to("meta") for k, v in batch.items()}, 0)
     with pytest.raises(ValueError, match="train state on cpu"):
         tsteps.make_train_setup(run, "meta").step_fn(params, opt, batch, 0)
+    from repro_torch.launch.mesh import make_mesh_for
+    mesh = make_mesh_for(2, 2, device="cpu", host_devices=2)
+    sp, so = tsteps.init_train_state(run, 0, mesh=mesh)
+    with pytest.raises(ValueError, match="sharded over a mesh"):
+        step(sp, so, batch, 0)
+    with pytest.raises(ValueError, match="not placed over this step's mesh"):
+        tsteps.make_train_setup(run, mesh=mesh).step_fn(params, opt, batch,
+                                                        0)
     bf16 = dataclasses.replace(run, moment_dtype="bfloat16")
     assert tsteps.init_train_state(bf16, 0, "cpu")[1]["v"]["embed"].dtype \
         == torch.bfloat16
