@@ -208,8 +208,28 @@ fails the run:
               one-ulp share, a planted per-row-scale conv refused, and
               its first conv's input on 2 × 2 against one device); the
               fp32 prefill and one decode step (hubert: forward) on 2 × 2
-              within phase 9's tolerance of one device; K1–K5 launch 0
-              times. Every phase's wall seconds are logged at the end.
+              within phase 9's tolerance of one device; the decode cache
+              a 2 × 2 mesh position holds (cut by heads over "model")
+              beside the parent's placement, and serving peaks; one
+              device with each column-parallel product as two half-width
+              GEMMs (ROADMAP C8), the 2 × 1 and 1 × 2 meshes, one
+              device with each product as two half-row GEMMs, and one
+              device with each row-parallel product as two half-K bf16
+              GEMMs added in bf16: greedy agreement with one device, with
+              2 × 2 and with 1 × 2; w8a8 fake-quant
+              linears served on 1 × 1 (bit for bit) and 2 × 2 (the
+              relative error to the fp32 model within 0.05 of one
+              device's, the JAX launcher's no-added-error gate); K1–K5
+              launch 0 times;
+12. dry run — ``launch.dryrun.cost_step`` of llama3.2-1b's train step
+              (phase 10's run) on a 1 × 1 mesh under fake tensors on the
+              CPU, then the real step on the card under
+              ``FlopCounterMode``: the matmul FLOPs equal and the
+              argument bytes equal the live parameters', moments',
+              count's and batch's; the dry run's kernel-launching ops
+              beside the traced step's device intervals, its bytes beside
+              the step's time at 3.35 TB/s. Every phase's wall seconds
+              are logged at the end.
 
 Phase 5's device-busy share is the union of the trace's device intervals
 over the traced window, so it cannot pass 100 %.
@@ -366,6 +386,12 @@ LM_SHARD_TOL = 1e-4
 # H100 80GB HBM3 at 700 W: 6.05 % past (4.3x one ulp's 1.39 %) and, with
 # the fault, 32.7 % (23.5x); 8x lies between them (PERF.md, PR 20).
 LM_SHARD_CONV_ULPS = 8
+# w8a8 fake-quant serving of llama3.2-1b over 2 x 2: the relative
+# distance of its logits from one device's stays below this, and that of
+# a planted fault, every row quantizing with its own activation scale,
+# must lie above it (both read in every run). On an NVIDIA H100 80GB
+# HBM3 at 700 W: 1.825e-2 sound, 5.785e-2 with the fault (PERF.md).
+LM_SHARD_Q8_REL = 3e-2
 
 
 def fail(msg: str) -> None:
@@ -1842,7 +1868,7 @@ def lm_shard_phase(dev, smi: str) -> dict:
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_mesh_for
     from repro_torch.models import registry, rglru
-    from repro_torch.models.param import tree_leaves, tree_map
+    from repro_torch.models.param import tree_leaves, tree_map, tree_paths
     from repro_torch.optim.optimizer import adamw_init
 
     rep: dict = {"llama": {}, "train_gates": {}, "serve_gates": {}}
@@ -2046,30 +2072,96 @@ def lm_shard_phase(dev, smi: str) -> dict:
     from repro_torch.models import layers as L
     per_block = L._per_block
 
-    def fp32_partials(x, w, fn, x_dim, out_dim):
-        if out_dim is not None or x.dtype != torch.bfloat16:
-            return per_block(x, w, fn, x_dim, out_dim)
+    def fp32_partials(x, w, fn, x_dim, out_dim, after=None):
+        dt = (x[0] if isinstance(x, list) else x).dtype
+        if out_dim is not None or dt != torch.bfloat16:
+            return per_block(x, w, fn, x_dim, out_dim, after)
         return per_block(x, w, lambda a, b: fn(a.float(), b.float()),
-                         x_dim, None).to(x.dtype)
+                         x_dim, None, after).to(dt)
     srun = RunConfig(model=cfg, seq_len=LM_PROMPT + LM_SHARD_DECODE,
                      global_batch=LM_BATCH)
     inputs = batch_at(cfg, LM_PROMPT, LM_BATCH, 0, mode="prefill",
                       device=dev)
-    outs = {}
+    # C8: one device with every column-parallel product of the 2 x 2
+    # mesh computed as the mesh computes it, two half-width GEMMs (the
+    # row-parallel products whole)
+    linear = L.linear
+    col_ptrs: set = set()
+
+    def split_columns(x, w, b=None, q8=False):
+        if isinstance(w, torch.Tensor) and w.dim() == 2 and \
+                w.untyped_storage().data_ptr() in col_ptrs:
+            n = w.shape[-1] // 2
+            y = torch.cat([x @ w[:, :n].contiguous(),
+                           x @ w[:, n:].contiguous()], -1)
+            return y if b is None else y + b.to(y.dtype)
+        return linear(x, w, b, q8)
+    def split_rows(x, w, b=None, q8=False):
+        if isinstance(w, torch.Tensor) and w.dim() == 2 and \
+                x.shape[0] % 2 == 0 and not q8:
+            n = x.shape[0] // 2
+            y = torch.cat([x[:n] @ w, x[n:] @ w], 0)
+            return y if b is None else y + b.to(y.dtype)
+        return linear(x, w, b, q8)
+    row_ptrs: set = set()
+
+    def split_k(x, w, b=None, q8=False):
+        if isinstance(w, torch.Tensor) and w.dim() == 2 and \
+                w.untyped_storage().data_ptr() in row_ptrs:
+            k = w.shape[0] // 2
+            y = x[..., :k] @ w[:k].contiguous()
+            y = y + x[..., k:] @ w[k:].contiguous()
+            return y if b is None else y + b.to(y.dtype)
+        return linear(x, w, b, q8)
+    sh22 = steps.param_shardings(cfg, mesh22)
+    mesh21 = make_mesh_for(2, 1, device=dev, host_devices=2)
+    mesh12 = make_mesh_for(2, 2, device=dev, host_devices=2)
+    outs, peaks = {}, {}
     for name, mesh in (("single", None), ("2x2", mesh22),
-                       ("2x2_fp32_partials", mesh22)):
+                       ("2x2_fp32_partials", mesh22),
+                       ("single_split_columns", None), ("2x1", mesh21),
+                       ("1x2", mesh12), ("single_split_rows", None),
+                       ("single_split_k", None)):
         params = (steps.init_lm_params(cfg, 0, dev) if mesh is None else
                   steps.init_lm_params(cfg, 0, mesh=mesh))
         if name == "2x2_fp32_partials":
             L._per_block = fp32_partials
+        if name == "single_split_columns":
+            col_ptrs.clear()
+            for (path, t), (_, spec) in zip(
+                    tree_paths(params), tree_paths(sh22)):
+                sp = tuple(spec.spec)
+                if (len(sp) == t.dim() and sp[-1] == "model") or (
+                        path == ("embed",) and cfg.tie_embeddings and
+                        sp and sp[0] == "model"):
+                    col_ptrs.add(t.untyped_storage().data_ptr())
+            L.linear = split_columns
+        if name == "single_split_rows":
+            L.linear = split_rows
+        if name == "single_split_k":
+            row_ptrs.clear()
+            for (path, t), (_, spec) in zip(
+                    tree_paths(params), tree_paths(sh22)):
+                sp = tuple(spec.spec)
+                if len(sp) == t.dim() and t.dim() >= 2 and \
+                        sp[-2] == "model":
+                    row_ptrs.add(t.untyped_storage().data_ptr())
+            L.linear = split_k
         try:
             steps.generate(srun, params, inputs, 2, device=dev, mesh=mesh)
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev)
             outs[name] = steps.generate(srun, params, inputs,
                                         LM_SHARD_DECODE, device=dev,
                                         mesh=mesh, keep_logits=True)
+            peaks[name] = torch.cuda.max_memory_allocated(dev) - held
         finally:
             L._per_block = per_block
+            L.linear = linear
         del params
+        if name != "2x2":
+            outs[name].pop("cache")
         free_card()
     ref = outs["single"]
     sv = rep["llama"]["serve"] = {
@@ -2099,6 +2191,85 @@ def lm_shard_phase(dev, smi: str) -> dict:
             greedy_agreement=float(eq.float().mean()), sequences=seqs,
             prefill_gap=float((o["logits"][0].float() -
                                ref["logits"][0].float()).abs().max()))
+    o = outs["single_split_columns"]
+    eq = o["tokens"] == ref["tokens"]
+    seqs = []
+    for b in range(LM_BATCH):
+        k = int((~eq[b]).nonzero()[0]) if bool((~eq[b]).any()) else None
+        at = k if k is not None else 0
+        seqs.append({"first_step_apart": k, "gap_there": float(
+            (o["logits"][at][b].float() - ref["logits"][at][b].float())
+            .abs().max())})
+    sv["c8_split_columns"] = {
+        "greedy_agreement": float(eq.float().mean()), "sequences": seqs,
+        "tokens_equal_2x2": bool(torch.equal(o["tokens"],
+                                             outs["2x2"]["tokens"])),
+        "agreement_with_2x2": float((o["tokens"] == outs["2x2"]["tokens"])
+                                    .float().mean()),
+        "prefill_gap": float((o["logits"][0].float() -
+                              ref["logits"][0].float()).abs().max()),
+        "prefill_gap_to_2x2": float((o["logits"][0].float() -
+                                     outs["2x2"]["logits"][0].float())
+                                    .abs().max())}
+    for name in ("2x1", "1x2", "single_split_rows", "single_split_k"):
+        o = outs[name]
+        sv["c8_" + name] = {
+            "greedy_agreement": float((o["tokens"] == ref["tokens"])
+                                      .float().mean()),
+            "agreement_with_2x2": float((o["tokens"] == outs["2x2"]["tokens"])
+                                        .float().mean()),
+            "agreement_with_1x2": float((o["tokens"] == outs["1x2"]["tokens"])
+                                        .float().mean()),
+            "prefill_gap_to_1x2": float((o["logits"][0].float() -
+                                         outs["1x2"]["logits"][0].float())
+                                        .abs().max()),
+            "prefill_gap": float((o["logits"][0].float() -
+                                  ref["logits"][0].float()).abs().max())}
+        log(f"sharded LM {LM_SHARD_ARCH} serving, C8 bisection, {name}: "
+            f"greedy tokens agree with one device at "
+            f"{100 * sv['c8_' + name]['greedy_agreement']:.1f} %, with 2 x 2 "
+            f"at {100 * sv['c8_' + name]['agreement_with_2x2']:.1f} %, with "
+            f"1 x 2 at {100 * sv['c8_' + name]['agreement_with_1x2']:.1f} %;"
+            f" prefill logits {sv['c8_' + name]['prefill_gap']:.3e} from one "
+            f"device's, {sv['c8_' + name]['prefill_gap_to_1x2']:.3e} from "
+            f"1 x 2's (bf16; {smi})")
+    c8 = sv["c8_split_columns"]
+    log(f"sharded LM {LM_SHARD_ARCH} serving, C8: one device with each "
+        f"column-parallel product as two half-width GEMMs (bf16): greedy "
+        f"tokens agree with one device at {100 * c8['greedy_agreement']:.1f}"
+        f" % (2 x 2: {100 * sv['2x2']['greedy_agreement']:.1f} %), with "
+        f"2 x 2 at {100 * c8['agreement_with_2x2']:.1f} % (all equal: "
+        f"{c8['tokens_equal_2x2']}); prefill logits {c8['prefill_gap']:.3e}"
+        f" from one device's, {c8['prefill_gap_to_2x2']:.3e} from 2 x 2's; "
+        f"per sequence (first step apart, gap there): " + ", ".join(
+            f"({q['first_step_apart']}, {q['gap_there']:.3e})"
+            for q in seqs) + f"; {smi}")
+    # A7.5: the decode cache a mesh position holds, against the parent's
+    # placement (each row's whole cache at its first block's position)
+    cache = outs["2x2"].pop("cache")
+    at_pos: dict = {}
+    whole_row = 0
+    for name, t in cache.items():
+        d = t.model_dim
+        for key, blk in t.blocks.items():
+            pos = (key[1], key[d] if d is not None else 0)
+            at_pos[pos] = at_pos.get(pos, 0) + blk.numel() * \
+                blk.element_size()
+        whole_row += math.prod(t.shape) * t.dtype.itemsize // t.counts()[1]
+    del cache
+    sv["decode_cache"] = {
+        "bytes_a_position": {f"{r},{b}": v for (r, b), v in at_pos.items()},
+        "parent_bytes_a_row_first_block": whole_row, "peak_bytes": peaks}
+    log(f"sharded LM {LM_SHARD_ARCH} serving, A7.5: 2 x 2 decode cache "
+        f"(prompt {LM_PROMPT} + {LM_SHARD_DECODE} steps, B={LM_BATCH}) "
+        f"bytes a mesh position {sorted(at_pos.items())} (cut by heads "
+        f"over model); the parent placed each row's whole cache, "
+        f"{whole_row:,} B, at its first block's position; serving peak "
+        f"above the held weights: " + ", ".join(
+            f"{k} {v / 2**30:.3f} GiB" for k, v in peaks.items())
+        + f" (one card: every logical position on it); decode "
+        f"{sv['2x2']['decode_ms_median']:.2f} ms a step on 2 x 2, "
+        f"{sv['single']['decode_ms_median']:.2f} one device; {smi}")
     sv["prefill_margins"] = [float(v) for v in margin(ref["logits"][0])]
     top = float(ref["logits"][0].float().abs().max())
     sv["bf16_ulp_at_largest_logit"] = \
@@ -2205,10 +2376,19 @@ def lm_shard_phase(dev, smi: str) -> dict:
         sh = steps.param_shardings(cfg, mesh, fsdp=fsdp)
         conv_on = cfg.use_winograd_conv
 
+        step_ms = []
+
         def mesh_step():
             p_sh = place_tree(tree_map(torch.clone, base), sh)
-            _, _, m_sh = steps.make_train_setup(run, mesh=mesh).step_fn(
-                p_sh, adamw_init(p_sh), batch, 1)
+            o_sh = adamw_init(p_sh)
+            fn = steps.make_train_setup(run, mesh=mesh).step_fn
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            _, _, m_sh = fn(p_sh, o_sh, batch, 1)
+            e1.record()
+            torch.cuda.synchronize(dev)
+            step_ms.append(e0.elapsed_time(e1))
             p_sh = gather_tree(p_sh)
             free_card()
             return p_sh, m_sh
@@ -2222,6 +2402,26 @@ def lm_shard_phase(dev, smi: str) -> dict:
                 p_f, m_f = mesh_step()
             finally:
                 rglru._depthwise_wino_conv_rows = counted
+            # what multiplying w_x whole costs (ROADMAP C9): two more mesh
+            # steps each way, w_x whole and column-parallel (the parent's)
+            gate_u = rglru._rec_gate_u
+
+            def column_parallel(p, x, cfg_, q8):
+                h = rglru._apply_norm(p["ln_mix"], x, cfg_)
+                gate = L._gelu(L.linear(h, p["rec"]["w_y"], q8=q8)
+                               .float()).to(x.dtype)
+                return gate, L.linear(h, p["rec"]["w_x"], q8=q8)
+            timed = {}
+            for name, fn in (("w_x whole", gate_u),
+                             ("w_x column-parallel", column_parallel)):
+                rglru._rec_gate_u = fn
+                try:
+                    del step_ms[:]
+                    for _ in range(2):
+                        mesh_step()
+                    timed[name] = list(step_ms)
+                finally:
+                    rglru._rec_gate_u = gate_u
         one = steps.make_train_setup(run, dev).step_fn
         p_n = tree_map(lambda t: t * (1 + 2.0 ** -23), base)
         p_n, _, m_n = one(p_n, adamw_init(p_n), batch, 1)
@@ -2240,7 +2440,7 @@ def lm_shard_phase(dev, smi: str) -> dict:
         ulp_off, _, _, w["ulp_params"] = off_tier(p_n, p1, o1["m"], lr)
         w.update(params_off=off, params_held=n, ulp_params_off=ulp_off,
                  loss_value=float(m1["loss"]), depth=cfg.n_layers,
-                 mesh=dict(mesh.shape), fsdp=fsdp)
+                 mesh=dict(mesh.shape), fsdp=fsdp, mesh_step_ms=step_ms[0])
         # the parameters at the tier; where the fake-quant conv runs, the
         # products' own rounding on the mesh reaches the conv's casts and
         # STE masks, which flip, so there up to LM_SHARD_CONV_ULPS times
@@ -2260,6 +2460,7 @@ def lm_shard_phase(dev, smi: str) -> dict:
                     (d > 0).sum()), "elements": d.numel(),
                 "largest": float(first_in["one"].abs().max())}
             f_off, _, f_low, _ = off_tier(p_f, p1, o1["m"], lr)
+            w["c9_step_ms"] = timed
             w.update(fault_params_off=f_off, fault_low=f_low,
                      fault_loss=abs(float(m_f["loss"]) - float(m1["loss"])),
                      fault_grad_norm=abs(float(m_f["grad_norm"]) -
@@ -2273,7 +2474,8 @@ def lm_shard_phase(dev, smi: str) -> dict:
         return w
 
     def describe(w) -> str:
-        out = (f"loss {w['loss']:.2e}, grad norm {w['grad_norm']:.2e} "
+        out = (f"mesh step {w['mesh_step_ms']:.1f} ms (its first); "
+               f"loss {w['loss']:.2e}, grad norm {w['grad_norm']:.2e} "
                f"apart (loss {w['loss_value']:.4f}); {w['params_off']} of "
                f"{w['params_held']:,} held parameters past the tier, worst "
                f"{w['params']:.2e}; one ulp of the weights on one device: "
@@ -2283,6 +2485,9 @@ def lm_shard_phase(dev, smi: str) -> dict:
         if "fault_params_off" in w:
             n = max(w["params_held"], 1)
             fi = w["first_conv_input"]
+            out += "; mesh steps (ms) " + ", ".join(
+                f"{k}: {[round(v, 1) for v in ms]}"
+                for k, ms in w["c9_step_ms"].items())
             out += (f"; shares past: mesh {100 * w['params_off'] / n:.3f} %, "
                     f"one ulp {100 * w['ulp_params_off'] / n:.3f} %, planted "
                     f"per-row-scale conv {100 * w['fault_params_off'] / n:.3f}"
@@ -2385,11 +2590,122 @@ def lm_shard_phase(dev, smi: str) -> dict:
             f"worst {worst:.2e}")
         del params, p_sh
         free_card()
+    # A7.6: w8a8 fake-quant linears served over 1 x 1 (bit for bit) and
+    # 2 x 2 against one device: a rounding apart in an activation moves
+    # its per-tensor scale, so every element may step by a quantum and
+    # phase 9's elementwise tolerance does not hold; the gate is the
+    # logits' relative distance, held below LM_SHARD_Q8_REL, above which
+    # the planted per-row-scale fault must lie
+    cfg = gate_cfg("llama3.2-1b", quantize_linears=True)
+    model = registry.get_model(cfg)
+    run = RunConfig(model=cfg, seq_len=g["S"], global_batch=g["B"])
+    params = fan_in_scaled(steps.init_lm_params(cfg, 1, dev), model, cfg)
+    inputs = batch_at(cfg, g["prompt"], g["B"], 1, mode="prefill",
+                      device=dev)
+    a = steps.generate(run, params, inputs, 1, device=dev, keep_logits=True)
+
+    def rel(out):
+        return max(float((x - y).norm() / y.norm())
+                   for x, y in zip(out["logits"], a["logits"]))
+    q8 = {}
+    for name, mesh in (("1x1", mesh11), ("2x2", mesh22)):
+        p_sh = place_tree(tree_map(torch.clone, params),
+                          steps.param_shardings(cfg, mesh))
+        b = steps.generate(run, p_sh, inputs, 1, mesh=mesh, keep_logits=True)
+        q8[name] = {"rel": rel(b), "ok": all(
+            torch.equal(x, y) for x, y in zip(b["logits"], a["logits"]))
+            if name == "1x1" else rel(b) < LM_SHARD_Q8_REL}
+        if name == "2x2":
+            with mock.patch.object(shd.Rows, "lockstep_max",
+                                   lambda self, t: t):
+                f = steps.generate(run, p_sh, inputs, 1, mesh=mesh,
+                                   keep_logits=True)
+            q8["2x2"]["fault_rel"] = rel(f)
+            q8["2x2"]["ok"] &= rel(f) > LM_SHARD_Q8_REL
+        if not q8[name]["ok"]:
+            problems.append(f"q8 serving on {name}: {q8[name]}, limit "
+                            f"{LM_SHARD_Q8_REL}")
+        del p_sh
+    rep["serve_gates"]["llama3.2-1b q8"] = q8
+    log(f"sharded LM serve gate llama3.2-1b with quantize_linears (w8a8 "
+        f"fake-quant, fp32, depth {cfg.n_layers}, prefill and one decode "
+        f"step): 1 x 1 bit for bit {q8['1x1']['ok']}; 2 x 2 logits "
+        f"{q8['2x2']['rel']:.3e} from one device's (relative), the planted "
+        f"per-row-scale fault {q8['2x2']['fault_rel']:.3e}, limit "
+        f"{LM_SHARD_Q8_REL}: {q8['2x2']['ok']}")
+    del params
+    free_card()
     rep["serve_gates_wall_s"] = time.perf_counter() - t0
     rep["gate_failures"] = problems
     mm.allow_tf32 = tf32
     if problems:
         fail("sharded LM gates: " + "; ".join(problems))
+    return rep
+
+
+def dryrun_phase(dev, smi: str) -> dict:
+    """Phase 12 (see the module docstring). Returns its report."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.distributed.sharding import tree_blocks
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_mesh_for
+
+    cfg = ARCHS[LM_SHARD_ARCH]
+    run = RunConfig(model=cfg, seq_len=LM_TRAIN_SEQ,
+                    global_batch=LM_TRAIN_BATCH, microbatch=LM_TRAIN_MICRO,
+                    lr=3e-4, total_steps=10, warmup_steps=1)
+    dry = dryrun.cost_step(run, "train", make_mesh_for(1, 1, device="cpu"))
+    t = dry["tally"]
+    mesh = make_mesh_for(1, 1, device=dev)
+    params, opt = steps.init_train_state(run, 0, mesh=mesh)
+    setup = steps.make_train_setup(run, mesh=mesh)
+    batch = batch_at(cfg, LM_TRAIN_SEQ, LM_TRAIN_BATCH, 0, run.seed,
+                     device=dev)
+    live = sum(x.numel() * x.element_size() for x in
+               tree_blocks(params) + tree_blocks(opt["m"]) +
+               tree_blocks(opt["v"]) + [opt["count"]] + list(batch.values()))
+    setup.step_fn(params, opt, batch, 0)          # warm
+    torch.cuda.synchronize(dev)
+    with FlopCounterMode(display=False) as fc:
+        setup.step_fn(params, opt, batch, 1)
+    card_flops = fc.get_total_flops()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    setup.step_fn(params, opt, batch, 2)
+    e1.record()
+    torch.cuda.synchronize(dev)
+    step_ms = e0.elapsed_time(e1)
+    tr = traced(dev, lambda: setup.step_fn(params, opt, batch, 3), 1)
+    del params, opt, setup
+    free_card()
+    rep = {"dryrun_s": dry["seconds"], "dry": t.as_dict(),
+           "dry_argument_bytes": dry["argument_bytes"],
+           "live_argument_bytes": live, "card_flops": card_flops,
+           "step_ms": step_ms, "device_intervals": tr["device_intervals"],
+           "busy_share": tr["busy_share"],
+           "bytes_at_hbm_rate_ms": t.bytes / HBM_BYTES_S * 1e3}
+    log(f"dry run (phase 12) {LM_SHARD_ARCH} train step, B={LM_TRAIN_BATCH}"
+        f" x {LM_TRAIN_SEQ}, microbatch {LM_TRAIN_MICRO}, 1 x 1 mesh, fake "
+        f"tensors on the CPU in {dry['seconds']:.1f} s: matmul FLOPs "
+        f"{t.matmul_flops:.6e} (card, FlopCounterMode over the real step: "
+        f"{card_flops:.6e}); argument bytes {dry['argument_bytes']:,} (the "
+        f"card's live parameters, moments, count and batch: {live:,}); "
+        f"{t.launches:,} kernel-launching ops beside the traced step's "
+        f"{tr['device_intervals']:.0f} device intervals; {t.bytes:.4e} "
+        f"bytes read and written, {rep['bytes_at_hbm_rate_ms']:.1f} ms at "
+        f"3.35 TB/s, beside the step's {step_ms:.1f} ms (busy "
+        f"{100 * tr['busy_share']:.1f} %); {smi}")
+    if card_flops != t.matmul_flops:
+        fail(f"dry run: {t.matmul_flops} matmul FLOPs, the card's step "
+             f"{card_flops}")
+    if live != dry["argument_bytes"]:
+        fail(f"dry run: {dry['argument_bytes']} argument bytes, the card's "
+             f"live state {live}")
     return rep
 
 
@@ -3300,7 +3616,15 @@ def main() -> int:
         f"{report['shard_lm']['launches']}")
     if any(report["shard_lm"]["launches"].values()):
         fail(f"sharded LM: kernels launched {report['shard_lm']['launches']}")
+    # 12. dry run ----------------------------------------------------------
     walls[12] = time.perf_counter()
+    _build.reset_launches()
+    report["dryrun"] = dryrun_phase(dev, smi)
+    report["dryrun"]["launches"] = dict(_build.LAUNCHES)
+    log(f"phase 12 (dry run) {time.perf_counter() - walls[12]:.1f}s")
+    if any(report["dryrun"]["launches"].values()):
+        fail(f"dry run: kernels launched {report['dryrun']['launches']}")
+    walls[13] = time.perf_counter()
     report["phase_wall_s"] = {n: walls[n + 1] - walls[n]
                               for n in sorted(walls) if n + 1 in walls}
     log("phase wall seconds: " + ", ".join(

@@ -25,24 +25,34 @@ step runs a batch over a mesh: the batch cut over the data axes into
 rows, each row's work on its own device, and a weight cut over "model"
 multiplied block by block (``models.layers.linear``). The step installs
 its ``Rows`` (``running``), as the JAX launcher installs its mesh with
-``with mesh:``; the model code reads it (``rows``).
+``with mesh:``; the model code reads it (``rows``). A decode cache is
+placed as the JAX package's ``_cache_pspec`` places it
+(``cache_model_dim``, ``Rows.stitch_cache``), a row's blocks read and
+written through ``CacheRow``. Rows run in lockstep threads where a
+batch-global abs-max spans them (``Rows.lockstep_max``). For the dry
+run (``launch.dryrun``) a ``Rows`` computes mesh position 0 alone
+(``first_only``) and the copies between positions name the collective
+they stand for (``moving``).
 
 Not ported: ``shard_map_compat`` (JAX only).
 """
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 __all__ = ["Mesh", "Placed", "placed_or", "rules", "axis_extent",
            "data_axis_extent", "device_grid", "shard", "gather",
            "gather_max", "PartitionSpec", "P", "NamedSharding", "pspec",
            "named_sharding", "tree_shardings", "batch_pspec", "constrain",
            "Sharded", "place_tree", "gather_tree", "tree_blocks",
-           "map_blocks", "from_blocks", "Rows", "running", "rows"]
+           "map_blocks", "from_blocks", "Rows", "running", "rows",
+           "cache_model_dim", "CacheRow", "moving"]
 
 
 class Mesh:
@@ -546,16 +556,139 @@ class Rows:
     Without a mesh: one row on the batch's own device, and every method
     is the identity."""
 
-    def __init__(self, mesh: Optional[Mesh] = None, dp=None):
+    def __init__(self, mesh: Optional[Mesh] = None, dp=None,
+                 first_only: bool = False, lockstep: bool = False):
+        self._thread = threading.local()
         self.mesh, self.dp, self.r = mesh, dp, 0
         self.grid = None if mesh is None else \
             device_grid(mesh, dp, "model")
         self.n = 1 if mesh is None else self.grid.shape[0]
+        self.m = 1 if mesh is None else self.grid.shape[1]
+        self.first_only = first_only
+        self.lockstep = lockstep and self.n > 1 and not first_only
+
+    @property
+    def r(self) -> int:
+        """The running row (of this thread, where rows run in lockstep)."""
+        return getattr(self._thread, "r", 0)
+
+    @r.setter
+    def r(self, value: int) -> None:
+        self._thread.r = value
+
+    def lockstep_max(self, t: torch.Tensor) -> torch.Tensor:
+        """The maximum of ``t`` over every row, each row's ``t`` taken
+        before any row goes on (``t`` itself outside a lockstep ``each``):
+        a batch-global abs-max such as a per-tensor quantization scale.
+
+        Two forms carry this contract, and neither can take the other's
+        place. A fake-quantized linear (``layers.linear(q8=True)``) sits
+        inside each row's attention and MLP: a form over every row's
+        slab at once would split every layer at each of its linears, so
+        its rows run in lockstep threads, and only where a config
+        fake-quantizes its linears over several rows. The hybrid's
+        quantized conv is one call between its layer's ``each`` calls,
+        so it takes the rows' slabs as a list (``rglru._conv1d_rows``)
+        and needs no threads: threads would run every hybrid step over
+        a mesh, and the dry run, which walks one position in one thread
+        under a dispatch mode, could not count its scales."""
+        if not getattr(self._thread, "stepping", False):
+            return t
+        self._vals[self.r] = t
+        self._barrier.wait()
+        with moving("all-reduce"):
+            out = self._vals[0]
+            for v in self._vals[1:]:
+                out = torch.maximum(out, v.to(out.device))
+        self._barrier.wait()
+        return out.to(t.device)
+
+    def _each_lockstep(self, fn, params, lists) -> list:
+        """``each`` with every row in a thread of its own, in lockstep at
+        each ``lockstep_max``."""
+        args = list(zip(*lists, strict=True))
+        self._barrier = threading.Barrier(len(args))
+        self._vals = [None] * len(args)
+        grad, inference = torch.is_grad_enabled(), \
+            torch.is_inference_mode_enabled()
+        out, errors = [None] * len(args), []
+
+        def run(r):
+            self.r, self._thread.stepping = r, True
+            dev = self.grid[r, 0]
+            if dev.type == "cuda":      # the row's device, current here
+                torch.cuda.set_device(dev)
+            try:
+                with torch.inference_mode(inference), \
+                        torch.set_grad_enabled(grad):
+                    out[r] = fn(self.local(params), *args[r])
+            except BaseException as e:          # noqa: BLE001
+                errors.append(e)
+                self._barrier.abort()
+        threads = [threading.Thread(target=run, args=(r,))
+                   for r in range(len(args))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise next((e for e in errors if not isinstance(
+                e, threading.BrokenBarrierError)), errors[0])
+        return out
 
     def device(self, b: int = 0) -> Optional[torch.device]:
         """Where the running row computes model block b (None: anywhere,
         the one-device case)."""
         return None if self.grid is None else self.grid[self.r, b]
+
+    def _stand_in(self, out, dev, inputs=()):
+        """With ``first_only`` (the dry run: only mesh position 0 computes,
+        every position doing alike work), what another row or block would
+        return: empty tensors shaped like position 0's ``out``, on ``dev``
+        (a device, or a map from position 0's devices to this one's).
+        Where a gradient is taken they hang on ``inputs``, the tensors the
+        skipped work would have read, as they were before it moved them
+        to its device: the backward then hands each a gradient from that
+        device (``_StandIn``), which is what position 0 takes in from the
+        skipped work."""
+        flat = _flat_tensors(out)
+
+        def where(t):
+            return dev.get(t.device, dev.get(None)) if isinstance(
+                dev, dict) else dev
+        inputs = [t for t in inputs if isinstance(t, torch.Tensor)
+                  and t.requires_grad]
+        if torch.is_grad_enabled() and inputs:
+            home = where(flat[0]) if flat else None
+            made = list(_StandIn.apply(
+                home, [(t.shape, t.dtype, where(t), t.requires_grad)
+                       for t in flat], *inputs))
+        else:
+            made = [torch.empty_like(t, device=where(t)) for t in flat]
+        it = iter(made)
+
+        def build(o):
+            if isinstance(o, torch.Tensor):
+                return next(it)
+            if isinstance(o, (list, tuple)):
+                return type(o)(build(v) for v in o)
+            if isinstance(o, dict):
+                return {k: build(v) for k, v in o.items()}
+            return o
+        return build(out)
+
+    def per_block(self, fn, m: int, inputs=None) -> list:
+        """``fn(b, device)`` for model blocks b < m of the running row, each
+        on the row's device of block b (with ``first_only``, block 0 only:
+        the others stand in, hanging on ``inputs(b)``, the tensors block b
+        reads before it moves them to its device)."""
+        outs = [fn(0, self.device(0))]
+        for b in range(1, m):
+            dev = self.device(b)
+            outs.append(self._stand_in(
+                outs[0], dev, inputs(b) if inputs is not None else ())
+                if self.first_only else fn(b, dev))
+        return outs
 
     def split(self, t: torch.Tensor) -> list:
         """``t`` cut along dim 0 into the rows, each on its row's device."""
@@ -571,35 +704,61 @@ class Rows:
         if len(parts) == 1:
             return parts[0]
         home = parts[0].device
-        return torch.cat([p.to(home) for p in parts], dim)
+        with moving("all-gather"):
+            return torch.cat([p.to(home) for p in parts], dim)
 
-    def stitch(self, parts: list, dim: int):
-        """The rows' parts as one tensor cut along ``dim`` over the data
-        axes: a ``Sharded`` whose row-r block is part r, where it lies
-        (part 0 itself without a mesh)."""
+    def stitch_cache(self, name: str, parts: list,
+                     dim: Optional[int] = None):
+        """The rows' parts of decode-cache leaf ``name`` (batch dim 1) as
+        the cache is placed (``_cache_pspec`` of ``launch.steps``): a
+        ``Sharded`` whose (row r, block b) block lies on ``grid[r, b]``,
+        cut along ``cache_model_dim``. A part is a whole tensor (cut here)
+        or a list of its model blocks along ``dim`` (each where it lies).
+        Without a mesh: part 0 itself."""
         if self.grid is None:
-            return parts[0]
-        shape = list(parts[0].shape)
-        shape[dim] *= len(parts)
+            return parts[0][0] if isinstance(parts[0], list) else parts[0]
+        if isinstance(parts[0], list):      # blocks along ``dim``
+            shape, d = list(parts[0][0].shape), dim
+            shape[d] *= len(parts[0])
+        else:
+            shape = list(parts[0].shape)
+            d = cache_model_dim(name, shape, self.m)
+        shape[1] *= len(parts)
         spec = [None] * len(shape)
-        spec[dim] = self.dp
-        return Sharded(NamedSharding(self.mesh, spec), shape,
-                       {tuple(r if d == dim else 0 for d in range(len(shape))):
-                        p for r, p in enumerate(parts)})
+        spec[1] = self.dp
+        if d is not None:
+            spec[d] = "model"
+        blocks = {}
+        for r, part in enumerate(parts):
+            if not isinstance(part, list):
+                if d is None or self.m == 1:
+                    part = [part]
+                else:
+                    s = part.shape[d] // self.m
+                    part = [part.narrow(d, b * s, s).contiguous().to(
+                        self.grid[r, b]) for b in range(self.m)]
+            for b, t in enumerate(part):
+                blocks[tuple(r if i == 1 else b if i == d else 0
+                             for i in range(len(shape)))] = t
+        return Sharded(NamedSharding(self.mesh, spec), shape, blocks)
 
-    def cache_rows(self, cache: dict, dim: int = 1) -> list:
-        """A decode cache (leaves cut along ``dim`` by ``stitch``) as one
-        dict of its blocks a row, each on its row's device."""
+    def cache_rows(self, cache: dict) -> list:
+        """A decode cache (placed by ``stitch_cache``) as one dict a row of
+        ``CacheRow``s, each holding the row's blocks where they lie."""
         if self.grid is None:
-            return [cache]
+            return [{name: CacheRow([t], None) for name, t in cache.items()}]
         out = [{} for _ in range(self.n)]
         for name, t in cache.items():
-            if not isinstance(t, Sharded) or t.counts()[dim] != self.n:
+            if not isinstance(t, Sharded) or t.counts()[1] != self.n:
                 raise ValueError(f"cache leaf {name!r} is not cut into "
-                                 f"{self.n} rows along dim {dim}")
+                                 f"{self.n} rows along dim 1")
+            d = t.model_dim
+            m = 1 if d is None else t.counts()[d]
             for r in range(self.n):
-                out[r][name] = t.blocks[tuple(r if d == dim else 0
-                                              for d in range(len(t.shape)))]
+                out[r][name] = CacheRow(
+                    [t.blocks[tuple(r if i == 1 else b if i == d else 0
+                                    for i in range(len(t.shape)))]
+                     for b in range(m)], d)
         return out
 
     def local(self, tree):
@@ -617,14 +776,185 @@ class Rows:
     def each(self, fn, params, *lists) -> list:
         """``fn(local params, *row args)`` for every row in order, with
         ``r`` set to it."""
-        out = []
+        if self.lockstep:
+            if _get_current_dispatch_mode() is not None:
+                raise ValueError("rows in lockstep run in threads, which "
+                                 "a dispatch mode does not reach")
+            return self._each_lockstep(fn, params, lists)
+        out, used = [], None
         try:
             for r, args in enumerate(zip(*lists, strict=True)):
                 self.r = r
-                out.append(fn(self.local(params), *args))
+                if r and self.first_only:
+                    where = dict(zip(self.grid[0], self.grid[r]))
+                    where[None] = self.grid[r, 0]
+                    if used is None:
+                        used = _inputs_reached(out[0], first, local,
+                                               self.grid[0, 0]) \
+                            if torch.is_grad_enabled() else []
+                    out.append(self._stand_in(
+                        out[0], where, _flat_tensors(args) + used))
+                else:
+                    local, first = self.local(params), args
+                    out.append(fn(local, *args))
         finally:
             self.r = 0
         return out
+
+
+def _flat_tensors(tree) -> list:
+    """The tensors of a tree of lists, tuples and dicts (a ``Sharded``
+    leaf's blocks), in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, Sharded):
+        return tree.tensors()
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _flat_tensors(v)]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _flat_tensors(v)]
+    return []
+
+
+def _inputs_reached(out, args, local, home) -> list:
+    """The tensors of row 0's parameter view ``local`` on ``home``
+    (position 0's device: the blocks it owns, which every other row
+    gathers) that row 0's ``out`` depends on, short of its own ``args``:
+    what every other row takes from position 0 and so sends a gradient
+    back to."""
+    cands = {}
+    for t in _flat_tensors(local):
+        if t.requires_grad and t.device == home:
+            cands[(t.grad_fn, t.output_nr) if t.grad_fn is not None
+                  else ("leaf", id(t))] = t
+    stop = {t.grad_fn for t in _flat_tensors(args) if t.grad_fn is not None}
+    seen, found = set(), {}
+    todo = [t.grad_fn for t in _flat_tensors(out) if t.grad_fn is not None]
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen or node in stop:
+            continue
+        seen.add(node)
+        for nxt, nr in node.next_functions:
+            if nxt is None:
+                continue
+            var = getattr(nxt, "variable", None)
+            key = ("leaf", id(var)) if var is not None else (nxt, nr)
+            if key in cands:
+                found[key] = cands[key]
+            elif var is None:
+                todo.append(nxt)
+    return list(found.values())
+
+
+class _StandIn(torch.autograd.Function):
+    """Empty outputs (``specs``: shape, dtype, device and whether it takes
+    a gradient, each) that depend on ``inputs``: the backward hands each
+    input a gradient made on ``dev`` and copied to the input's device, as
+    the skipped work's backward would."""
+
+    @staticmethod
+    def forward(ctx, dev, specs, *inputs):
+        ctx.dev = dev
+        ctx.meta = [(t.shape, t.dtype, t.device) for t in inputs]
+        # a saved tensor, as the skipped work saves some: a checkpointed
+        # function's recomputation then runs as far as the work it skips
+        # would make it run (non-reentrant checkpoint stops early)
+        ctx.save_for_backward(inputs[0])
+        outs = tuple(torch.empty(shape, dtype=dt, device=d)
+                     for shape, dt, d, _ in specs)
+        ctx.mark_non_differentiable(*[o for o, (*_, grad) in zip(outs, specs)
+                                      if not grad])
+        return outs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.saved_tensors
+        return (None, None) + tuple(
+            torch.empty(shape, dtype=dt, device=ctx.dev).to(d)
+            if need else None
+            for (shape, dt, d), need in zip(ctx.meta,
+                                            ctx.needs_input_grad[2:]))
+
+
+def cache_model_dim(name: str, shape, msize: int) -> Optional[int]:
+    """The dim of decode-cache leaf ``name`` cut over a model axis of
+    ``msize``, as the JAX package's ``_cache_pspec`` cuts it (None: the
+    leaf stays whole over "model"): k/v (L, B, S, Hkv, dh) by KV head,
+    else by head dim; RWKV's state S (L, B, H, dk, dv) by head; any other
+    leaf of 3 or more dims along its trailing channels; each where it
+    divides."""
+    nd = len(shape)
+    if name in ("k", "v") and nd == 5:
+        return 3 if shape[3] % msize == 0 else \
+            4 if shape[4] % msize == 0 else None
+    if name == "S" and nd == 5:
+        return 2 if shape[2] % msize == 0 else None
+    if nd >= 3 and shape[-1] % msize == 0:
+        return nd - 1
+    return None
+
+
+class CacheRow:
+    """One row's part of a decode-cache leaf: its blocks along the dim cut
+    over "model" (``dim``; None: one block), each on its block's device.
+    Indexing takes a layer (dim 0) of every block."""
+
+    def __init__(self, parts: list, dim: Optional[int]):
+        self.parts, self.dim = parts, dim
+
+    def __getitem__(self, i) -> "CacheRow":
+        return CacheRow([p[i] for p in self.parts],
+                        None if self.dim is None else self.dim - 1)
+
+    @property
+    def shape(self) -> tuple:
+        shape = list(self.parts[0].shape)
+        if self.dim is not None:
+            shape[self.dim] *= len(self.parts)
+        return tuple(shape)
+
+    def whole(self) -> torch.Tensor:
+        """The row's leaf on block 0's device (block 0 itself when it is
+        all of it: writes to it land in the cache)."""
+        if len(self.parts) == 1:
+            return self.parts[0]
+        home = self.parts[0].device
+        with moving("all-gather"):
+            return torch.cat([p.to(home) for p in self.parts], self.dim)
+
+    def write(self, value: torch.Tensor) -> None:
+        """Copy ``value`` (the whole leaf of the row) into the blocks."""
+        if len(self.parts) == 1:
+            self.parts[0].copy_(value)
+            return
+        s = self.parts[0].shape[self.dim]
+        for b, p in enumerate(self.parts):
+            p.copy_(value.narrow(self.dim, b * s, s).to(p.device))
+
+
+_MOVING = threading.local()
+
+
+@contextlib.contextmanager
+def moving(kind: str):
+    """Name the copies between mesh positions made inside by the kind of
+    collective they stand for ("all-gather", "all-reduce",
+    "reduce-scatter", "all-to-all"; a copy outside any is a
+    "collective-permute"), in this thread. Only the dry run's cost
+    counter (``analysis.op_cost``) reads it."""
+    kinds = _MOVING.__dict__.setdefault("kinds", [])
+    kinds.append(kind)
+    try:
+        yield
+    finally:
+        kinds.pop()
+
+
+def moving_kind() -> Optional[str]:
+    """The innermost ``moving`` kind of this thread (None outside one)."""
+    kinds = getattr(_MOVING, "kinds", None)
+    return kinds[-1] if kinds else None
 
 
 _ONE_ROW = Rows()

@@ -20,8 +20,10 @@ into rows as ``_batch_shardings`` places it (dim 0 over
 gradients reach each block through autograd, and AdamW updates each
 block where it lives. The step computes the function the one-device
 step computes on the whole batch (on a 1 × 1 mesh, bit for bit). The
-decode cache is placed as the batch part of ``_cache_pspec`` says
-(its heads stay whole, as attention runs whole on each row's device).
+decode cache is placed as ``_cache_pspec`` says: each model block
+attends with its own KV heads (or head-dim slice) and keeps their cache
+(``layers.attention``), and the other leaves are cut along their
+channels.
 """
 from __future__ import annotations
 
@@ -98,28 +100,19 @@ def _cache_pspec(cfg, cache_abstract: dict, mesh, rule_map) -> dict:
     """A ``NamedSharding`` a decode-cache leaf, as the JAX package's:
     the batch (dim 1) over the data axes; k/v's heads (else their head
     dim), RWKV's state heads, and any other leaf's trailing channels
-    over "model" where they divide."""
+    over "model" where they divide (``sharding.cache_model_dim``)."""
     msize = mesh.shape["model"]
 
     def leaf(name, x):
         shape = tuple(x.shape)
-        nd = len(shape)
-        dp = _dp_for_dim(shape[1], mesh, rule_map) if nd >= 2 else None
-        if name in ("k", "v") and nd == 5:       # (L, B, S, Hkv, dh)
-            if shape[3] % msize == 0:
-                return NamedSharding(mesh, P(None, dp, None, "model", None))
-            if shape[4] % msize == 0:
-                return NamedSharding(mesh, P(None, dp, None, None, "model"))
-            return NamedSharding(mesh, P(None, dp, None, None, None))
-        if name == "S" and nd == 5:              # (L, B, H, dk, dv)
-            if shape[2] % msize == 0:
-                return NamedSharding(mesh, P(None, dp, "model", None, None))
-            return NamedSharding(mesh, P(None, dp, None, None, None))
-        if nd >= 2:
-            spec = [None, dp] + [None] * (nd - 3)
-            spec.append("model" if shape[-1] % msize == 0 else None)
-            return NamedSharding(mesh, P(*spec))
-        return NamedSharding(mesh, P())
+        if len(shape) < 2:
+            return NamedSharding(mesh, P())
+        spec = [None] * len(shape)
+        spec[1] = _dp_for_dim(shape[1], mesh, rule_map)
+        d = shd.cache_model_dim(name, shape, msize)
+        if d is not None:
+            spec[d] = "model"
+        return NamedSharding(mesh, P(*spec))
     return {name: leaf(name, x) for name, x in cache_abstract.items()}
 
 
@@ -140,32 +133,34 @@ def param_shardings(cfg, mesh, *, fsdp: bool = False) -> dict:
                               _rules(mesh, fsdp), specs)
 
 
-def _rows(mesh, batch: dict, rule_map) -> Rows:
+def _rows(mesh, batch: dict, rule_map, cfg=None,
+          first_only: bool = False) -> Rows:
     """The rows ``batch`` (whole tensors of one batch size) runs as over
     ``mesh``: dim 0 cut as ``_batch_shardings`` places it (one row
-    without a mesh)."""
+    without a mesh); in lockstep where ``cfg`` fake-quantizes its
+    linears (their activation scales span the rows); ``first_only``:
+    see ``make_train_setup``."""
     if mesh is None:
         return Rows()
     dp = {s.spec[0] for s in tree_leaves(
         _batch_shardings(mesh, batch, rule_map))}
     if len(dp) != 1:
         raise ValueError(f"batch leaves cut {dp} ways: one batch size")
-    return Rows(mesh, dp.pop())
+    return Rows(mesh, dp.pop(), first_only=first_only,
+                lockstep=bool(cfg is not None and cfg.quantize_linears))
 
 
 def _check_cache(cfg, cache: dict, mesh, rule_map) -> None:
-    """Raise unless every leaf of a prefill's cache (cut along the batch,
-    dim 1, by the rows) is placed as ``_cache_pspec`` places it, less its
-    "model" entries: attention runs whole on each row's device, so heads
-    and channels stay whole (ROADMAP, Queue A 7.2)."""
+    """Raise unless every leaf of a prefill's cache is placed as
+    ``_cache_pspec`` places it."""
     for name, sh in _cache_pspec(cfg, cache, mesh, rule_map).items():
         t = cache[name]
         n = len(t.shape)
-        want = tuple(None if e == "model" else e for e in sh.spec)
-        if tuple(t.spec) + (None,) * (n - len(t.spec)) != \
-                want + (None,) * (n - len(want)):
-            raise ValueError(f"cache leaf {name!r} placed {t.spec}, not "
-                             f"{P(*want)}")
+        if not isinstance(t, Sharded) or \
+                tuple(t.spec) + (None,) * (n - len(t.spec)) != \
+                tuple(sh.spec) + (None,) * (n - len(sh.spec)):
+            raise ValueError(f"cache leaf {name!r} placed "
+                             f"{getattr(t, 'spec', None)}, not {sh.spec}")
 
 
 # ---------------------------------------------------------------------------
@@ -176,11 +171,18 @@ class TrainSetup:
     """The train step of a run on one device: ``step_fn(params,
     opt_state, batch, step) → (params, opt_state, metrics)`` with
     metrics ``loss`` and ``grad_norm`` (0-d fp32 tensors on the device);
-    ``lr_fn`` is the run's schedule."""
+    ``lr_fn`` is the run's schedule. The step is ``loss_grad(params,
+    batch) → (loss, grads)`` then ``update(grads, opt_state, params,
+    step) → metrics``, after its checks (the dry run counts the two
+    apart)."""
 
-    def __init__(self, step_fn: Callable, lr_fn: Callable):
+    def __init__(self, step_fn: Callable, lr_fn: Callable,
+                 loss_grad: Optional[Callable] = None,
+                 update: Optional[Callable] = None):
         self.step_fn = step_fn
         self.lr_fn = lr_fn
+        self.loss_grad = loss_grad
+        self.update = update
 
 
 def _value_and_grad(model, cfg, params: dict, batch: dict,
@@ -202,8 +204,8 @@ def _value_and_grad(model, cfg, params: dict, batch: dict,
         for t, g in zip(blocks, grads)])
 
 
-def _loss_with_microbatch(model, cfg, run, mesh=None,
-                          rule_map=None) -> Callable:
+def _loss_with_microbatch(model, cfg, run, mesh=None, rule_map=None,
+                          first_only: bool = False) -> Callable:
     """``(params, batch) → (loss, grads)``; with ``run.microbatch`` below
     the global batch, accumulated over its microbatches in order as the
     JAX scan does: ``loss / n_micro`` and ``g / n_micro`` (in the
@@ -212,7 +214,7 @@ def _loss_with_microbatch(model, cfg, run, mesh=None,
     microbatch rows so)."""
     def plain(params, batch):
         return _value_and_grad(model, cfg, params, batch,
-                               _rows(mesh, batch, rule_map))
+                               _rows(mesh, batch, rule_map, cfg, first_only))
 
     if not run.microbatch or run.microbatch >= run.global_batch:
         return plain
@@ -238,7 +240,8 @@ def _loss_with_microbatch(model, cfg, run, mesh=None,
     return accum
 
 
-def make_train_setup(run, device=None, *, mesh=None) -> TrainSetup:
+def make_train_setup(run, device=None, *, mesh=None,
+                     first_only: bool = False) -> TrainSetup:
     """The train step of ``run`` on ``device`` (resolved: a request for
     the card without one raises), or over ``mesh``: microbatched loss
     and gradients, then AdamW on the cosine schedule (``run``'s lr,
@@ -248,14 +251,17 @@ def make_train_setup(run, device=None, *, mesh=None) -> TrainSetup:
     mesh, unless the state is placed over that mesh
     (``init_train_state(mesh=)``); the batch is whole tensors on any of
     its devices; a mesh with a "pod" axis cuts the batch (and with
-    ``run.fsdp`` the embed dims) over ("pod", "data"), else over "data"."""
+    ``run.fsdp`` the embed dims) over ("pod", "data"), else over "data".
+    ``first_only`` (the dry run, ``launch.dryrun``, under fake tensors):
+    the step computes only mesh position 0's work, the other rows and
+    blocks standing in (``sharding.Rows(first_only=True)``)."""
     cfg = run.model
     model = registry.get_model(cfg)
     lr_fn = cosine_schedule(run.lr, run.warmup_steps, run.total_steps)
     if mesh is None:
         dev = resolve_device(device)
     loss_grad = _loss_with_microbatch(model, cfg, run, mesh,
-                                      _rules(mesh, run.fsdp))
+                                      _rules(mesh, run.fsdp), first_only)
 
     def train_step(params, opt_state, batch, step: int):
         if mesh is None:
@@ -267,14 +273,16 @@ def make_train_setup(run, device=None, *, mesh=None) -> TrainSetup:
                                               "m": opt_state["m"],
                                               "v": opt_state["v"]})
         loss, grads = loss_grad(params, batch)
-        metrics = adamw_update_(grads, opt_state, params,
-                                lr=lr_fn(int(step)), b1=run.adam_b1,
-                                b2=run.adam_b2,
-                                weight_decay=run.weight_decay,
-                                grad_clip=run.grad_clip)
+        metrics = update(grads, opt_state, params, step)
         metrics["loss"] = loss
         return params, opt_state, metrics
-    return TrainSetup(train_step, lr_fn)
+
+    def update(grads, opt_state, params, step: int):
+        return adamw_update_(grads, opt_state, params, lr=lr_fn(int(step)),
+                             b1=run.adam_b1, b2=run.adam_b2,
+                             weight_decay=run.weight_decay,
+                             grad_clip=run.grad_clip)
+    return TrainSetup(train_step, lr_fn, loss_grad, update)
 
 
 def init_train_state(run, seed: int = 0, device=None, *,
@@ -294,19 +302,20 @@ def init_train_state(run, seed: int = 0, device=None, *,
 # Serving
 # ---------------------------------------------------------------------------
 
-def make_serve_setup(run, mode: str, device=None, *,
-                     mesh=None) -> Callable:
+def make_serve_setup(run, mode: str, device=None, *, mesh=None,
+                     first_only: bool = False) -> Callable:
     """mode ∈ {"prefill", "decode"} → the step on ``device`` (resolved:
     a request for the card without one raises), or over ``mesh``. On one
     device the step raises unless its parameters and inputs lie on that
     device; over a mesh, unless the parameters are placed over it. Its
-    inputs are whole tensors; its batch runs as rows over the data axes.
+    inputs are whole tensors; its batch runs as rows over the data axes
+    (``first_only``: as ``make_train_setup``).
 
     prefill: ``step(params, batch) → (cache, last logits)``;
     decode: ``step(params, cache, tokens, pos) → (logits, cache)``, the
     cache written in place. Over a mesh the cache's leaves are
-    ``Sharded`` along the batch (dim 1, as ``_check_cache`` holds it) and
-    the logits whole on the mesh's first device.
+    ``Sharded`` as ``_cache_pspec`` says (``_check_cache`` holds the
+    prefill's to it) and the logits whole on the mesh's first device.
 
     The step checks a parameter tree and slices its stacked layers once,
     the first time it is given that tree, and reuses both while it is
@@ -335,7 +344,8 @@ def make_serve_setup(run, mode: str, device=None, *,
             if mesh is None:
                 _check_on(dev, "batch", batch)
             with torch.inference_mode(), \
-                    shd.running(_rows(mesh, batch, rule_map)):
+                    shd.running(_rows(mesh, batch, rule_map, cfg,
+                                      first_only)):
                 cache, logits = model.prefill(params, batch, cfg,
                                               layers=layers(params))
                 if mesh is not None:
@@ -350,7 +360,7 @@ def make_serve_setup(run, mode: str, device=None, *,
             _check_on(dev, "decode inputs", {"cache": cache,
                                              "tokens": tokens, "pos": pos})
         with torch.inference_mode(), shd.running(
-                _rows(mesh, {"tokens": tokens}, rule_map)):
+                _rows(mesh, {"tokens": tokens}, rule_map, cfg, first_only)):
             return model.decode_step(params, cache, tokens, pos, cfg,
                                      layers=layers(params))
     return decode_step
@@ -385,19 +395,18 @@ def grow_cache(cfg, cache: dict, batch: int, max_len: int) -> dict:
     block."""
     first = next(iter(cache.values()))
     if isinstance(first, Sharded):
-        n = first.counts()[1]
-
-        def key(t, r):
-            return tuple(r if d == 1 else 0 for d in range(len(t.shape)))
-        grown = [grow_cache(cfg, {k: v.blocks[key(v, r)]
-                                  for k, v in cache.items()},
-                            batch // n, max_len) for r in range(n)]
+        want = registry.get_model(cfg).init_cache(cfg, batch, max_len,
+                                                  device="meta")
         out = {}
         for name, v in cache.items():
-            shape = list(grown[0][name].shape)
-            shape[1] *= n
-            out[name] = Sharded(v.sharding, shape, {
-                key(v, r): g[name] for r, g in enumerate(grown)})
+            shape = list(want[name].shape)
+            blocks = {}
+            for key, t in v.blocks.items():
+                bshape = [s // n for s, n in zip(shape, v.counts())]
+                g = torch.zeros(bshape, dtype=t.dtype, device=t.device)
+                g[tuple(slice(0, s) for s in t.shape)] = t
+                blocks[key] = g
+            out[name] = Sharded(v.sharding, shape, blocks)
         return out
     dev = first.device
     full = registry.get_model(cfg).init_cache(cfg, batch, max_len,

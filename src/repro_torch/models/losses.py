@@ -34,18 +34,20 @@ def _constrain_vocab_sharded(xc: torch.Tensor, lc: torch.Tensor,
                              unembed: Sharded):
     """One chunk against an unembedding cut over "vocab" (its dim 1):
     (the masked NLL's sum, the count of labels >= 0), block by block."""
-    rows = sharding.rows()
     m = unembed.counts()[1]
     vb = unembed.shape[1] // m
     target = torch.clamp_min(lc, 0)
-    lses, picks = [], []
-    for k in range(m):
-        dev = rows.device(k)
+
+    def block(k, dev):
         logits = (xc.to(dev) @ unembed.gather(dev, at=(1, k))).float()
-        lses.append(torch.logsumexp(logits, -1).to(xc.device))
         pick = torch.arange(k * vb, (k + 1) * vb, device=dev) == \
             target.to(dev)[..., None]
-        picks.append(torch.where(pick, logits, 0.0).sum(-1).to(xc.device))
+        return (torch.logsumexp(logits, -1),
+                torch.where(pick, logits, 0.0).sum(-1))
+    parts = sharding.rows().per_block(block, m, lambda k: [xc])
+    with sharding.moving("all-gather"):
+        lses = [lse.to(xc.device) for lse, _ in parts]
+        picks = [pick.to(xc.device) for _, pick in parts]
     lse = torch.logsumexp(torch.stack(lses, -1), -1)
     onehot_ll = picks[0]
     for p in picks[1:]:
@@ -75,8 +77,9 @@ def _chunk_rows(xcs: list, lcs: list, unembed):
     out = sharding.rows().each(lambda w, xc, lc: _chunk_nll(xc, lc, w),
                                unembed, xcs, lcs)
     nll, count = out[0]
-    for s, n in out[1:]:
-        nll, count = nll + s.to(nll.device), count + n.to(count.device)
+    with sharding.moving("all-reduce"):
+        for s, n in out[1:]:
+            nll, count = nll + s.to(nll.device), count + n.to(count.device)
     return nll, count
 
 

@@ -172,8 +172,10 @@ def _fq_rows(ts: list, bits) -> list:
     if bits is None or len(ts) == 1:
         return [fake_quant(t, bits) for t in ts]
     amax = ts[0].detach().abs().amax()
-    for t in ts[1:]:
-        amax = torch.maximum(amax, t.detach().abs().amax().to(amax.device))
+    with sharding.moving("all-reduce"):
+        for t in ts[1:]:
+            amax = torch.maximum(amax,
+                                 t.detach().abs().amax().to(amax.device))
     scale = divide(torch.clamp_min(amax, 1e-12), qmax(bits))
     return [fake_quant(t, bits, scale=scale.to(t.device)) for t in ts]
 
@@ -293,10 +295,13 @@ def _rg_lru_step(p, x, h_prev):
 
 
 def _rec_gate_u(p, x, cfg, q8):
-    """A recurrent block's gate branch and its pre-conv input, one row."""
+    """A recurrent block's gate branch and its pre-conv input, one row.
+    ``w_x`` multiplies whole (``layers.whole``), as ``_gates``' weights
+    do: its product feeds the conv's fake-quant casts, where a
+    column-parallel product's last-bit differences flip roundings."""
     h = _apply_norm(p["ln_mix"], x, cfg)
     gate = L._gelu(L.linear(h, p["rec"]["w_y"], q8=q8).float()).to(x.dtype)
-    return gate, L.linear(h, p["rec"]["w_x"], q8=q8)
+    return gate, L.linear(h, L.whole(p["rec"]["w_x"]), q8=q8)
 
 
 def _rec_out(p, x, gate, h, cfg, q8):
@@ -391,41 +396,49 @@ def prefill(params, batch, cfg, layers=None):
         # logical position p lives at slot p % w (matches decode_step)
         return torch.roll(kv[:, -w:], S % w, dims=1)
 
-    def attn(p, x, st):
+    def attn(p, x):
         h = _apply_norm(p["ln_mix"], x, cfg)
         a, (k, v) = L.attention(p["attn"], h, cfg, window=cfg.window,
                                 causal=True, positions=positions.to(x.device),
                                 return_kv=True)
-        st["k"].append(ring_layout(k))
-        st["v"].append(ring_layout(v))
-        return x + a
+        return x + a, {"k": L.kv_map(ring_layout, k),
+                       "v": L.kv_map(ring_layout, v)}
 
-    def pre(p, x, st):
+    def pre(p, x):
         gate, u = _rec_gate_u(p, x, cfg, False)
-        st["conv"].append(u[:, -(cfg.conv_width - 1):])  # pre-conv tail
-        return gate, u
+        return gate, u, {"conv": u[:, -(cfg.conv_width - 1):]}  # the tail
 
-    def post(p, x, st, gate, u):
+    def post(p, x, gate, u):
         hfull = _rg_lru(p["rec"], u)
-        st["h"].append(hfull[:, -1].float())
         return x + L.linear((gate * hfull.to(gate.dtype)).to(x.dtype),
-                            p["rec"]["w_out"])
+                            p["rec"]["w_out"]), {"h": hfull[:, -1].float()}
 
     def mlp(p, x):
         return x + L.mlp(p["mlp"], _apply_norm(p["ln_mlp"], x, cfg), cfg)
 
+    def keep(outs):
+        for st, o in zip(state, outs):
+            for k, v in o[-1].items():
+                st[k].append(v)
+
     for p, kind in layers or layer_params(params, cfg):
         if kind == "attn":
-            xs = rows.each(attn, p, xs, state)
+            out = rows.each(attn, p, xs)
+            keep(out)
+            xs = [o[0] for o in out]
         else:
-            gu = rows.each(pre, p, xs, state)
-            us = _conv1d_rows(p["rec"], [u for _, u in gu], cfg)
-            xs = rows.each(post, p, xs, state, [g for g, _ in gu], us)
+            gu = rows.each(pre, p, xs)
+            keep(gu)
+            us = _conv1d_rows(p["rec"], [u for _, u, _ in gu], cfg)
+            out = rows.each(post, p, xs, [g for g, _, _ in gu], us)
+            keep(out)
+            xs = [o[0] for o in out]
         xs = rows.each(mlp, p, xs)
 
     xs = rows.each(lambda p, x: _apply_norm(p, x, cfg), params["ln_f"], xs)
     logits = _logits(params, [x[:, -1] for x in xs])
-    cache = {k: rows.stitch([torch.stack(st[k]) for st in state], 1)
+    cache = {k: rows.stitch_cache(k, [L.stack_kv(st[k]) for st in state],
+                                  L.kv_cache_dim(cfg))
              for k in ("k", "v", "h", "conv")}
     return cache, logits
 
@@ -474,13 +487,13 @@ def decode_step(params, cache, tokens, pos, cfg, layers=None):
                 ai += 1
             else:
                 gate, u = _rec_gate_u(p, x, cfg, False)     # (B, 1, dr)
-                win = torch.cat([c["conv"][ri], u], dim=1)  # (B, r, dr)
-                y = torch.einsum("brd,rd->bd", win,
+                win = torch.cat([c["conv"][ri].whole(), u], dim=1)
+                y = torch.einsum("brd,rd->bd", win,         # (B, r, dr)
                                  L.whole(p["rec"]["conv_w"])) + \
                     L.whole(p["rec"]["conv_b"])
-                h = _rg_lru_step(p["rec"], y, c["h"][ri])
-                c["h"][ri] = h
-                c["conv"][ri] = win[:, 1:]
+                h = _rg_lru_step(p["rec"], y, c["h"][ri].whole())
+                c["h"][ri].write(h)
+                c["conv"][ri].write(win[:, 1:])
                 x = x + L.linear((gate[:, 0] * h.to(gate.dtype)).to(
                     x.dtype)[:, None], p["rec"]["w_out"])
                 ri += 1

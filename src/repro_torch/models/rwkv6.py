@@ -275,7 +275,7 @@ def prefill(params, batch, cfg, layers=None):
     xs, states = hidden_forward(params, batch, cfg, collect_state=True,
                                 layers=layers)
     rows = sharding.rows()
-    cache = {name: rows.stitch([st[i] for st in states], 1)
+    cache = {name: rows.stitch_cache(name, [st[i] for st in states])
              for i, name in enumerate(("S", "tm_last", "cm_last"))}
     return cache, _logits(params, [x[:, -1] for x in xs])
 
@@ -305,11 +305,12 @@ def decode_step(params, cache, tokens, pos, cfg, layers=None):
 
     def row(lps, x, c):
         for i, lp in enumerate(lps):
-            x, (S, tml, cml) = _layer(lp, x, cfg, c["S"][i],
-                                      c["tm_last"][i], c["cm_last"][i])
-            c["S"][i] = S
-            c["tm_last"][i] = tml
-            c["cm_last"][i] = cml
+            x, (S, tml, cml) = _layer(lp, x, cfg, c["S"][i].whole(),
+                                      c["tm_last"][i].whole(),
+                                      c["cm_last"][i].whole())
+            c["S"][i].write(S)
+            c["tm_last"][i].write(tml)
+            c["cm_last"][i].write(cml)
         return x
     xs = [x.to(cfg.dtype) for x in _embed_rows(params, tokens)]  # (B, 1, d)
     xs = rows.each(row, blocks, xs, rows.cache_rows(cache))

@@ -211,7 +211,8 @@ def _embed_rows(params, batch, cfg):
 def hidden_forward(params: dict, batch: dict, cfg,
                    collect_kv: bool = False, layers=None):
     """Run the block stack → (the rows' final normed hiddens, aux,
-    per-row kv-or-None); a row's kv = (k, v), each (L, B_r, S, Hkv, dh).
+    per-row kv-or-None); a row's kv = (k, v), each (L, B_r, S, Hkv, dh),
+    or its model blocks (``layers.attention``).
     ``layers``: ``layer_params`` of ``params``, if the caller holds it."""
     rows = sharding.rows()
     xs, positions = _embed_rows(params, batch, cfg)
@@ -233,7 +234,7 @@ def hidden_forward(params: dict, batch: dict, cfg,
     xs = rows.each(lambda p, x: _apply_norm(p, x, cfg), params["ln_f"], xs)
     if not collect_kv:
         return xs, aux, None
-    return xs, aux, [(torch.stack(ks), torch.stack(vs)) for ks, vs in kvs]
+    return xs, aux, [(L.stack_kv(ks), L.stack_kv(vs)) for ks, vs in kvs]
 
 
 def _unembed_matrix(params, cfg):
@@ -275,8 +276,9 @@ def prefill(params: dict, batch: dict, cfg, layers=None):
                                layers=layers)
     logits = _logits(params, [x[:, -1] for x in xs], cfg)
     rows = sharding.rows()
-    return {"k": rows.stitch([k for k, _ in kv], 1),
-            "v": rows.stitch([v for _, v in kv], 1)}, logits
+    d = L.kv_cache_dim(cfg)
+    return {"k": rows.stitch_cache("k", [k for k, _ in kv], d),
+            "v": rows.stitch_cache("v", [v for _, v in kv], d)}, logits
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.distributed.sharding import map_blocks, tree_blocks
+from repro_torch.distributed.sharding import map_blocks, moving, tree_blocks
 
 __all__ = ["adamw_init", "adamw_update", "adamw_update_", "cosine_schedule",
            "global_norm"]
@@ -51,8 +51,9 @@ def adamw_init(params: dict, moment_dtype: torch.dtype = torch.float32
 def global_norm(tree: dict) -> torch.Tensor:
     blocks = tree_blocks(tree)
     home = blocks[0].device
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))).to(
-        home) for g in blocks))
+    with moving("all-reduce"):
+        return torch.sqrt(sum(torch.sum(torch.square(
+            g.to(torch.float32))).to(home) for g in blocks))
 
 
 def _leaf_update(g, m, v, p, *, lr, b1, b2, eps, weight_decay, c1, c2):

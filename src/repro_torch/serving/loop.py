@@ -177,10 +177,12 @@ class ServingLoop:
                 self.warmup_times = self.engine.warmup(geoms, self.forward)
             else:
                 for g in geoms:
+                    # to_numpy copies the output to the host, which waits
+                    # for the device: the window ends after its work
                     t0 = time.perf_counter()
                     to_numpy(self.forward(device_put(
                         np.zeros(g, np.float32), self.device)))
-                    self.warmup_times[g] = time.perf_counter() - t0  # lint: waive=unsynced-timing
+                    self.warmup_times[g] = time.perf_counter() - t0  # lint: waive=unsynced-timing,cuda-unsynced-timing
         self._warm = (capture_count(self.forward), len(_build.BUILDS))
         self._accepting = True
         self._thread = threading.Thread(target=self._run,

@@ -18,6 +18,7 @@ devices in subprocesses):
 """
 import dataclasses
 import types
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import numpy as np
@@ -182,18 +183,23 @@ def test_sharded_matches_jax_sharded_on_a_1x1_mesh():
     mesh = _mesh(1, 1)
     args = [ops[k].numpy() for k in ("tiles", "u_q", "w_scales",
                                      "in_scales")]
-    for h in (ops["h_amax"], None):
-        hj = None if h is None else h.numpy()
-        want = np.asarray(jops.execute_int8_sharded(
-            *args, hj, spec=jspec, geom=ops["geom"], mesh=jmesh,
-            hadamard_bits=8, interpret=True, model_axis="model"))
-        if h is not None:
-            single = np.asarray(jops.execute_int8(
-                *args, hj, spec=jspec, geom=ops["geom"], hadamard_bits=8,
-                fused=True, interpret=True))
-            assert np.array_equal(want, single)
-        got = _sharded(ops, mesh, 8, dynamic=h is None, model_axis="model")
-        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    hj = ops["h_amax"].numpy()
+    # the three JAX programs compile and run in worker threads at once
+    # (XLA compiles off the GIL; the same programs as one by one)
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        sharded = {h is None: pool.submit(
+            lambda h=h: np.asarray(jops.execute_int8_sharded(
+                *args, h, spec=jspec, geom=ops["geom"], mesh=jmesh,
+                hadamard_bits=8, interpret=True, model_axis="model")))
+            for h in (hj, None)}
+        single = pool.submit(lambda: np.asarray(jops.execute_int8(
+            *args, hj, spec=jspec, geom=ops["geom"], hadamard_bits=8,
+            fused=True, interpret=True)))
+        assert np.array_equal(sharded[False].result(), single.result())
+        for dynamic in (False, True):
+            got = _sharded(ops, mesh, 8, dynamic=dynamic, model_axis="model")
+            np.testing.assert_allclose(got.numpy(), sharded[dynamic].result(),
+                                       rtol=1e-4, atol=1e-4)
 
 
 def test_indivisible_cout_raises_naming_the_axis_and_the_leaf():

@@ -29,6 +29,7 @@ variants of every family, the JAX model's weights carried across by
 * The example end to end on the CPU, and its refusals.
 """
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -142,21 +143,27 @@ def _jax_serve(jcfg, params, prompt, prefill=None, teacher=None):
 
 @pytest.fixture(scope="module")
 def jax_side():
-    """Every JAX reference of this module, computed once."""
-    res = {}
-    for i, arch in enumerate(DECODERS):
-        jcfg, _ = _cfgs(arch, **_conv_off(arch))
-        params = _numpy_params(jcfg, i)
-        prompt = _prompt(jcfg, 100 + i)
-        res[arch] = dict(params=params, prompt=prompt,
-                         **_jax_serve(jcfg, params, prompt))
-    jcfg, _ = _cfgs("hubert-xlarge")
-    params = _numpy_params(jcfg, 50)
-    prompt = _prompt(jcfg, 150)
-    logits, _ = jax.jit(lambda p, b: jreg.get_model(jcfg).forward(
-        p, b, jcfg))(params, prompt)
-    res["hubert-xlarge"] = dict(params=params, prompt=prompt,
-                                logits=np.asarray(logits))
+    """Every JAX reference of this module, computed once, each model's in
+    a worker thread at once (XLA compiles off the GIL; the same programs
+    on the same inputs as one after another)."""
+    res, jobs = {}, {}
+    with ThreadPoolExecutor(max_workers=len(DECODERS) + 1) as pool:
+        for i, arch in enumerate(DECODERS):
+            jcfg, _ = _cfgs(arch, **_conv_off(arch))
+            params = _numpy_params(jcfg, i)
+            prompt = _prompt(jcfg, 100 + i)
+            res[arch] = dict(params=params, prompt=prompt)
+            jobs[arch] = pool.submit(_jax_serve, jcfg, params, prompt)
+        jcfg, _ = _cfgs("hubert-xlarge")
+        params = _numpy_params(jcfg, 50)
+        prompt = _prompt(jcfg, 150)
+        res["hubert-xlarge"] = dict(params=params, prompt=prompt)
+        hubert = pool.submit(lambda: np.asarray(jax.jit(
+            lambda p, b: jreg.get_model(jcfg).forward(p, b, jcfg))(
+                params, prompt)[0]))
+        for arch, job in jobs.items():
+            res[arch].update(job.result())
+        res["hubert-xlarge"]["logits"] = hubert.result()
     return res
 
 
@@ -413,12 +420,13 @@ def test_hybrid_with_the_winograd_conv_replays_through_jax(jax_side):
     finally:
         jrglru._conv1d = _JCONV
     assert len(jax_inputs) == len(rec)
+    # each conv against JAX's own pipeline on the port's input (one
+    # program: every layer's conv has the same shapes)
+    jconv = jax.jit(lambda p, v: _JCONV(p, v, jcfg)).lower(
+        rec[0], seen[0][0]).compile(compiler_options=ALGSIMP_OFF)
     for p, (x, y), jx in zip(rec, seen, jax_inputs):
         np.testing.assert_allclose(x, jx, **TOL)
-        # each conv against JAX's own pipeline on the port's input
-        want = jax.jit(lambda p, v: _JCONV(p, v, jcfg)).lower(
-            p, x).compile(compiler_options=ALGSIMP_OFF)(p, x)
-        _fake_quant_close(y, np.asarray(want))
+        _fake_quant_close(y, np.asarray(jconv(p, x)))
     np.testing.assert_allclose(logits.numpy(), jref["logits"][0], **TOL)
     _close_tree(cache, jref["prefill_cache"], "prefill cache")
     np.testing.assert_array_equal(out["tokens"][:, :N_DEC].numpy(),

@@ -24,7 +24,11 @@
   largest (Adam's first step moves any parameter by about lr). The MoE
   with ``moe_groups`` = 1 (one sort over every row's tokens) and = the
   data extent; a batch that does not divide the data extent.
-* Sharded prefill → decode against one device.
+* Sharded prefill → decode against one device (the decode cache placed
+  by ``_cache_pspec``, heads or head dims over "model"); a 1 × 1 mesh bit
+  for bit.
+* w8a8 fake-quant linears (``quantize_linears``) over meshes: the
+  activation scale over every row's slab, against one device and JAX.
 * ``launch/train`` over a 2 × 2 mesh of four logical devices: SIGTERM and
   ``--resume`` bit for bit with a straight run; its checkpoint restored
   onto ``--model-parallel 1`` bit for bit; the serving example over it.
@@ -34,6 +38,7 @@ import os
 import signal
 import sys
 from pathlib import Path
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -63,6 +68,7 @@ from repro_torch.launch.mesh import (make_host_mesh, make_mesh_for,
 from repro_torch.models import layers as L
 from repro_torch.models import registry
 from repro_torch.models.param import tree_leaves, tree_paths
+from repro_torch.optim.optimizer import adamw_update_
 
 # One intra-op thread: under pytest-xdist the workers share the cores.
 torch.set_num_threads(1)
@@ -307,12 +313,15 @@ def _step(cfg, mesh=None, fsdp=False, batch=B, micro=None):
     kw = {} if mesh is None else {"mesh": mesh}
     params, opt = tsteps.init_train_state(run, 0, "cpu", **kw)
     b = batch_at(cfg, S, batch, 0)
-    loss_grad = tsteps._loss_with_microbatch(
-        registry.get_model(cfg), cfg, run, mesh, tsteps._rules(mesh, fsdp))
-    _, grads = loss_grad(params, b)
-    params, opt, met = tsteps.make_train_setup(run, "cpu", **kw).step_fn(
-        params, opt, b, 1)
-    return met, gather_tree(grads), gather_tree(params), gather_tree(opt)
+    seen = {}
+
+    def update(grads, *args, **kwargs):      # the step's own gradients
+        seen["grads"] = gather_tree(grads)
+        return adamw_update_(grads, *args, **kwargs)
+    with mock.patch.object(tsteps, "adamw_update_", update):
+        params, opt, met = tsteps.make_train_setup(run, "cpu", **kw).step_fn(
+            params, opt, b, 1)
+    return met, seen["grads"], gather_tree(params), gather_tree(opt)
 
 
 def _close(got, want, what, where=None, floor=0.0):
@@ -437,23 +446,124 @@ def test_sharded_prefill_and_decode_match_one_device(arch):
         k = next(iter(out["cache"].values()))
         assert isinstance(k, Sharded) and k.counts()[1] == \
             tshd.axis_extent(mesh, ("pod", "data"))
-        # every cache leaf placed by _cache_pspec, less its "model" entries
+        # every cache leaf placed by _cache_pspec, its "model" entries too
         want = tsteps._cache_pspec(cfg, out["cache"], mesh,
                                    tsteps._rules(mesh, False))
         for name, t in out["cache"].items():
-            spec = [None if e == "model" else e for e in want[name].spec]
-            assert _full(t.spec, len(t.shape)) == _full(spec, len(t.shape))
+            assert _full(t.spec, len(t.shape)) == \
+                _full(want[name].spec, len(t.shape))
 
 
 def _full(spec, n):
     return tuple(spec) + (None,) * (n - len(spec))
 
 
+@pytest.mark.parametrize("arch", [a for a in FAMILIES if a != "hubert-xlarge"])
+def test_sharded_serving_on_a_1x1_mesh_is_bit_for_bit(arch):
+    """Prefill → 2 decode steps on a 1 × 1 mesh: the cache placed as
+    ``_cache_pspec`` says (its model entries of extent 1), every logit and
+    cache element bit for bit with one device."""
+    cfg = _cfg(arch)
+    run = RunConfig(model=cfg, seq_len=S + 2, global_batch=B)
+    inputs = batch_at(cfg, S, B, 0, mode="prefill")
+    one = tsteps.generate(run, tsteps.init_lm_params(cfg, 0, "cpu"), inputs,
+                          2, device="cpu", keep_logits=True)
+    mesh = make_mesh_for(1, 1, device="cpu")
+    out = tsteps.generate(run, tsteps.init_lm_params(cfg, 0, mesh=mesh),
+                          inputs, 2, mesh=mesh, keep_logits=True)
+    for a, b in zip(out["logits"], one["logits"]):
+        assert torch.equal(a, b)
+    want = tsteps._cache_pspec(cfg, out["cache"], mesh,
+                               tsteps._rules(mesh, False))
+    for name, t in out["cache"].items():
+        assert _full(t.spec, len(t.shape)) == \
+            _full(want[name].spec, len(t.shape))
+        assert torch.equal(t.gather(), one["cache"][name])
+
+
+def _q8_rows(x, w, mesh, spec):
+    """``layers.linear(q8=True)`` of x's rows over ``mesh`` (dim 0 over
+    "data", the rows in lockstep), w placed under ``spec``."""
+    rows = Rows(mesh, "data", lockstep=True)
+    ws = Sharded.place(w, tshd.NamedSharding(mesh, spec))
+    with tshd.running(rows):
+        parts = rows.each(lambda p, xr: L.linear(xr, p, q8=True), ws,
+                          rows.split(x))
+    return rows.join(parts)
+
+
+def test_q8_linears_over_a_mesh_hold_their_tiers():
+    """w8a8 fake-quant linears over meshes of logical devices against one
+    device: a 1 × 1 mesh and a column-parallel weight on 2 × 2 bit for bit
+    (the activation scale over both rows' slabs, each column's scale its
+    own), a row-parallel one at the fp32 tier (partial sums); one device
+    against JAX's ``linear(q8=True)`` at the fake-quant tier (≤ one
+    output quantization step of x's and w's grids apart)."""
+    g = np.random.default_rng(0)
+    x = torch.from_numpy(g.standard_normal((4, 6, 32)).astype(np.float32))
+    w = torch.from_numpy(g.standard_normal((32, 24)).astype(np.float32))
+    x[3, 2, 5] = 9.0            # the batch's abs-max lies in row 1's slab
+    one = L.linear(x, w, q8=True)
+    from repro.models import layers as JL
+    jx = np.asarray(JL.linear(jnp.asarray(x.numpy()),
+                              jnp.asarray(w.numpy()), q8=True))
+    step = float(x.abs().max() / 127) * float(w.abs().max() / 127) * 32
+    assert np.abs(one.numpy() - jx).max() <= step
+    m11 = make_mesh_for(1, 1, device="cpu")
+    assert torch.equal(_q8_rows(x, w, m11, tshd.P(None, "model")), one)
+    m22 = make_mesh_for(4, 2, device="cpu", host_devices=4)
+    assert torch.equal(_q8_rows(x, w, m22, tshd.P(None, "model")), one)
+    _close(_q8_rows(x, w, m22, tshd.P("model", None)), one, "row-parallel")
+    # each row quantizing by its own slab's abs-max is not what it computes
+    alone = torch.cat([L.linear(xr, w, q8=True) for xr in x.split(2)])
+    assert not torch.equal(alone, one)
+
+
+def test_lockstep_rows_under_contention():
+    """16 rows in lockstep threads (more than the cores), the interpreter
+    switching threads every microsecond: every row quantizes with the
+    batch's one scale, each q8 linear bit for bit with one device."""
+    g = np.random.default_rng(1)
+    x = torch.from_numpy(g.standard_normal((16, 3, 8)).astype(np.float32))
+    w = torch.from_numpy(g.standard_normal((8, 8)).astype(np.float32))
+    x[11, 1, 2] = 7.0
+    mesh = make_mesh_for(16, 1, device="cpu", host_devices=16)
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for _ in range(3):
+            assert torch.equal(_q8_rows(x, w, mesh, tshd.P(None, "model")),
+                               L.linear(x, w, q8=True))
+    finally:
+        sys.setswitchinterval(old)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "recurrentgemma-2b"])
+def test_q8_serving_over_a_mesh_matches_one_device(arch):
+    """A model with ``quantize_linears`` served over 1 × 1 (bit for bit)
+    and 2 × 2 (fp32 tier) against one device."""
+    cfg = _cfg(arch, quantize_linears=True)
+    run = RunConfig(model=cfg, seq_len=S + 2, global_batch=B)
+    inputs = batch_at(cfg, S, B, 0, mode="prefill")
+    one = tsteps.generate(run, tsteps.init_lm_params(cfg, 0, "cpu"), inputs,
+                          2, device="cpu", keep_logits=True)
+    for mesh, exact in ((make_mesh_for(1, 1, device="cpu"), True),
+                        (make_mesh_for(4, 2, device="cpu", host_devices=4),
+                         False)):
+        out = tsteps.generate(run, tsteps.init_lm_params(cfg, 0, mesh=mesh),
+                              inputs, 2, mesh=mesh, keep_logits=True)
+        for a, b in zip(out["logits"], one["logits"]):
+            if exact:
+                assert torch.equal(a, b)
+            else:
+                _close(a, b, f"{arch} q8 logits on {mesh.shape}")
+
+
 def test_steps_place_batch_and_cache_by_the_jax_helpers():
     """The rows follow ``_batch_shardings`` (with "pod" read off the mesh:
     a (2, 2, 2) mesh cuts a batch of 4 over ("pod", "data"), of 2 over
     "data" alone, of 3 not at all), and a serve step refuses a cache that
-    is not placed as ``_cache_pspec``'s batch part says."""
+    is not placed as ``_cache_pspec`` says."""
     pod = make_mesh_for(8, 2, 4, device="cpu", host_devices=8)
     rm = tsteps._rules(pod, False)
     assert rm["batch"] == ("pod", "data")
@@ -467,8 +577,8 @@ def test_steps_place_batch_and_cache_by_the_jax_helpers():
     k = torch.zeros((2, 4, 3, cfg.n_kv_heads, cfg.d_head))
     rm = tsteps._rules(mesh, False)
     rows = Rows(mesh, "data")
-    tsteps._check_cache(cfg, {"k": rows.stitch(list(k.split(2, 1)), 1)},
-                        mesh, rm)
+    tsteps._check_cache(cfg, {"k": rows.stitch_cache(
+        "k", list(k.split(2, 1)))}, mesh, rm)
     whole = Sharded.place(k, tshd.NamedSharding(mesh, tshd.P()))
     with pytest.raises(ValueError, match="cache leaf 'k' placed"):
         tsteps._check_cache(cfg, {"k": whole}, mesh, rm)

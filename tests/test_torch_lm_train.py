@@ -31,6 +31,7 @@ import dataclasses
 import os
 import signal
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import jax
@@ -165,23 +166,28 @@ def _jax_value_and_grad(jcfg, params, batch, options=None):
 
 @pytest.fixture(scope="module")
 def jax_side():
-    """Every JAX reference of this module, computed once."""
-    res = {}
-    for i, arch in enumerate(FAMILIES):
-        jcfg, _ = _cfgs(arch)
-        params = _numpy_params(jcfg, 10 + i)
-        batch = _numpy_batch(jcfg, 20 + i)
-        loss, grads = _jax_value_and_grad(jcfg, params, batch)
-        res[arch] = dict(params=params, batch=batch, loss=loss, grads=grads)
-    jcfg, _ = _cfgs("llama3.2-1b", param_dtype="bfloat16")
-    model = jreg.get_model(jcfg)
-    params = jax.tree.map(lambda s, v: v.astype(s.dtype),
-                          model.param_specs(jcfg),
-                          res["llama3.2-1b"]["params"],
-                          is_leaf=lambda x: isinstance(x, JParamSpec))
-    batch = res["llama3.2-1b"]["batch"]
-    loss, grads = _jax_value_and_grad(jcfg, params, batch, NO_EXCESS)
-    res["bf16"] = dict(params=params, batch=batch, loss=loss, grads=grads)
+    """Every JAX reference of this module, computed once, the families'
+    in worker threads at once (XLA compiles off the GIL; the same
+    programs on the same inputs as one after another)."""
+    res, jobs = {}, {}
+    bf16, _ = _cfgs("llama3.2-1b", param_dtype="bfloat16")
+    with ThreadPoolExecutor(max_workers=len(FAMILIES) + 1) as pool:
+        for i, arch in enumerate(FAMILIES):
+            jcfg, _ = _cfgs(arch)
+            params = _numpy_params(jcfg, 10 + i)
+            batch = _numpy_batch(jcfg, 20 + i)
+            res[arch] = dict(params=params, batch=batch)
+            jobs[arch] = pool.submit(_jax_value_and_grad, jcfg, params,
+                                     batch)
+        params = jax.tree.map(lambda s, v: v.astype(s.dtype),
+                              jreg.get_model(bf16).param_specs(bf16),
+                              res["llama3.2-1b"]["params"],
+                              is_leaf=lambda x: isinstance(x, JParamSpec))
+        res["bf16"] = dict(params=params, batch=res["llama3.2-1b"]["batch"])
+        jobs["bf16"] = pool.submit(_jax_value_and_grad, bf16, params,
+                                   res["bf16"]["batch"], NO_EXCESS)
+        for key, job in jobs.items():
+            res[key]["loss"], res[key]["grads"] = job.result()
     return res
 
 
